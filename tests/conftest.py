@@ -44,3 +44,8 @@ def pytest_configure(config):
         "chaos: scripted fault-injection / degradation-ladder scenarios "
         "(deterministic, runs in tier-1)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); "
+        "skips on a host without CUDA",
+    )

@@ -1,0 +1,41 @@
+"""Device and dtype resolution, and the one readback per sizing group.
+
+Entry points run on the card unless the caller asks for the CPU: a
+request for `cuda` on a host without CUDA raises, it never drops to the
+CPU on its own. float32 is the default dtype (the TPU's working type);
+float64 is used when asked, as the parity tests do.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+DEFAULT_DTYPE = torch.float32
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless told otherwise; raises when CUDA is asked for and
+    absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def resolve_dtype(dtype=None) -> torch.dtype:
+    """float32 by default; float64 when asked."""
+    if dtype is None:
+        return DEFAULT_DTYPE
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {dtype}")
+    return dtype
+
+
+def readback(t: torch.Tensor) -> np.ndarray:
+    """The single device-to-host copy of a packed result."""
+    return t.detach().cpu().numpy()

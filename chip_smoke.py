@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 It builds the CUDA kernels from the sources in the checkout, holds each
 kernel against its plain PyTorch version at the shapes of the main path,
 checks that a lane's kernel result and its whole decide_batch decision
-keep their bits in any batch and k_max bucket, drives the port's
+keep their bits in any batch and k_max bucket (for rows on both sides of
+the kernel's choice of team), drives the port's
 analyze + optimize path (System.calculate ->
 decide_batch -> Manager.optimize -> generate_solution) at full fleet
 width, checks the decisions against the PyTorch trip loop and a CPU
@@ -18,7 +19,9 @@ script exits non-zero when CUDA is absent or any check fails.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -56,6 +59,43 @@ SLICE_SPEED = (1.0, 0.55, 0.4, 0.3, 0.35, 0.25, 0.65, 0.35)
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def ptxas_summary(text: str):
+    """(kernel, registers and spills) per kernel entry of nvcc's
+    -Xptxas -v output, the kernel named as bisect_small<float, tail>."""
+    out, kernel, spill = [], None, ""
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"(bisect_(?:small|long))I([fd])Lb([01])E", ln)
+            kernel = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
+                      f", {'tail' if m.group(3) == '1' else 'mean'}>"
+                      if m else ln.split("'")[1])
+        elif "spill stores" in ln:
+            spill = ", ".join(re.findall(r"\d+ bytes spill \w+", ln))
+        elif "Used" in ln and kernel:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append((kernel, f"{regs} registers, {spill}"))
+            kernel, spill = None, ""
+    return out
+
+
+def blocks_per_sm(dtype: torch.dtype, k_max: int, tail_pct, long_team: bool):
+    """Resident blocks per SM, on this card, of the kernel that takes rows
+    of up to 3072 states (a block is one row of more than 768 states or
+    four shorter rows) or, with long_team, of the one that takes longer
+    rows (a block per row), at k_max."""
+    from workload_variant_autoscaler_tpu_torch.ops import _build
+
+    lib = _build.library("bisect_kernel")
+    blocks = ctypes.c_int(0)
+    err = lib.wva_bisect_occupancy(int(tail_pct is not None),
+                                   int(dtype == torch.float64), k_max,
+                                   int(long_team), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err} "
+                           f"({lib.wva_error_string(err).decode()})")
+    return blocks.value
 
 
 def card_line() -> str:
@@ -185,38 +225,50 @@ def compare(calls, rtol):
     return errs
 
 
+# Rows whose lane bits are checked: (max_batch, states K, k_max buckets).
+# The kernel gives a row of at most 768 states one warp and a longer one
+# 128 threads, from the row's own state count, so both sides are covered.
+LANE_ROWS = ((64, 704, (768, 2816, 3072, 4096)),
+             (256, 2816, (2816, 3072, 4096)))
+
+
 def lane_independence(calls):
-    """One row placed in a batch of 16 under k_max 768 and 3072, and in
-    the full-width launch, must give the same bits from each kernel."""
+    """One live row of each kind in LANE_ROWS, placed in a batch of 16
+    under each of its k_max buckets, must give the bits it gives in the
+    full-width launch, from each kernel."""
     from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
 
     for name in ("B1", "B2"):
-        for n, (fcols, icols, clm, k_max, pct) in calls:
-            fits = icols[:, bk.I_KOCC] <= 704          # max_batch 64 rows
-            live = torch.nonzero(fits & (icols[:, bk.I_DONE] == 0)).flatten()
-            others = torch.nonzero(fits).flatten()
-            if n == name and live.numel() >= 1 and others.numel() >= 16:
-                break
-        else:
-            raise AssertionError(f"{name}: too few live max_batch-64 rows")
-        idx = torch.cat([live[:1], others[others != live[0]][:15]])
-        full = bk.bisect(fcols, icols, clm, k_max, pct)[idx[0]]
-        sub_clm = clm[idx % clm.shape[0]]
-        got = []
-        for k in (768, 3072):
-            c = sub_clm[:, :k] if k <= k_max else torch.cat(
-                [sub_clm, torch.zeros(16, k - k_max, dtype=clm.dtype,
-                                      device=clm.device)], dim=1)
-            got.append(bk.bisect(fcols[idx].contiguous(),
-                                 icols[idx].contiguous(), c.contiguous(),
-                                 k, pct)[0])
-        torch.cuda.synchronize()
-        same = all(torch.equal(g, full) for g in got)
-        log(f"  {name} row {int(idx[0])}: full width k_max={k_max} "
-            f"{float(full)!r}, batch 16 k_max 768/3072 "
-            f"{[float(g) for g in got]} -> bit-identical={same}")
-        if not same:
-            raise AssertionError(f"{name}: lane result depends on its batch")
+        for max_batch, k_occ, buckets in LANE_ROWS:
+            for n, (fcols, icols, clm, k_max, pct) in calls:
+                live = torch.nonzero((icols[:, bk.I_KOCC] == k_occ)
+                                     & (icols[:, bk.I_DONE] == 0)).flatten()
+                if n == name and live.numel() >= 1 and fcols.shape[0] >= 16:
+                    break
+            else:
+                raise AssertionError(
+                    f"{name}: no live max_batch-{max_batch} row")
+            rows = torch.arange(fcols.shape[0], device=fcols.device)
+            idx = torch.cat([live[:1], rows[rows != live[0]][:15]])
+            full = bk.bisect(fcols, icols, clm, k_max, pct)[idx[0]]
+            sub_clm = clm[idx % clm.shape[0]]
+            got = []
+            for k in buckets:
+                c = sub_clm[:, :k] if k <= k_max else torch.cat(
+                    [sub_clm, torch.zeros(16, k - k_max, dtype=clm.dtype,
+                                          device=clm.device)], dim=1)
+                got.append(bk.bisect(fcols[idx].contiguous(),
+                                     icols[idx].contiguous(), c.contiguous(),
+                                     k, pct)[0])
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, full) for g in got)
+            log(f"  {name} max_batch-{max_batch} row {int(idx[0])}: full "
+                f"width k_max={k_max} {float(full)!r}, batch 16 k_max "
+                f"{'/'.join(map(str, buckets))} {[float(g) for g in got]} "
+                f"-> bit-identical={same}")
+            if not same:
+                raise AssertionError(
+                    f"{name}: lane result depends on its batch")
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:
@@ -226,35 +278,39 @@ def bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def decide_lane_independence(groups) -> bool:
-    """One feasible max_batch-64 lane of each sizing group, decided in a
-    batch of 16 under k_max 768 and 3072 and in the group's full-width
-    batch, through both backends: True when every packed column of
-    decide_batch gives the same bits (System._dedup_rows relies on it,
-    and decide_batch's own torch prologue and epilogue run on both
-    backends)."""
+    """One feasible lane of each kind in LANE_ROWS and each sizing group,
+    decided in a batch of 16 under each of its k_max buckets and in the
+    group's full-width batch, through both backends: True when every
+    packed column of decide_batch gives the same bits (System._dedup_rows
+    relies on it, and decide_batch's own torch prologue and epilogue run
+    on both backends)."""
     from workload_variant_autoscaler_tpu_torch.ops import fused
 
     same = True
     for q, slo, epi, k_max, pct in groups:
         full = {b: fused.decide_batch(q, slo, epi, k_max, pct, b)
                 for b in fused.BACKENDS}
-        fits = (q.occupancy <= 704) & q.valid
-        lane = torch.nonzero(
-            fits & (full["kernel"][fused.ROW_FEASIBLE] > 0)).flatten()
-        others = torch.nonzero(fits).flatten()
-        if lane.numel() < 1 or others.numel() < 16:
-            raise AssertionError("too few feasible max_batch-64 lanes")
-        idx = torch.cat([lane[:1], others[others != lane[0]][:15]])
+        for max_batch, k_occ, buckets in LANE_ROWS:
+            kind = (q.occupancy == k_occ) & q.valid
+            lane = torch.nonzero(
+                kind & (full["kernel"][fused.ROW_FEASIBLE] > 0)).flatten()
+            # the batch's other lanes must fit the smallest bucket
+            others = torch.nonzero((q.occupancy <= min(buckets))
+                                   & q.valid).flatten()
+            if lane.numel() < 1 or others.numel() < 16:
+                raise AssertionError(
+                    f"too few feasible max_batch-{max_batch} lanes")
+            idx = torch.cat([lane[:1], others[others != lane[0]][:15]])
 
-        def sub(t):
-            return type(t)(*[a[idx] for a in t])
+            def sub(t):
+                return type(t)(*[a[idx] for a in t])
 
-        for backend in fused.BACKENDS:
-            want = bits(full[backend][:, idx[0]])
-            for k in (768, 3072):
-                got = fused.decide_batch(sub(q), sub(slo), sub(epi), k, pct,
-                                         backend)[:, 0]
-                same = same and torch.equal(bits(got), want)
+            for backend in fused.BACKENDS:
+                want = bits(full[backend][:, idx[0]])
+                for k in buckets:
+                    got = fused.decide_batch(sub(q), sub(slo), sub(epi), k,
+                                             pct, backend)[:, 0]
+                    same = same and torch.equal(bits(got), want)
     return same
 
 
@@ -336,6 +392,25 @@ def bound_ms(name, args) -> tuple[float, float]:
     return t_bytes, t_ops
 
 
+def wrapper_host_us(args, reps: int = 200) -> float:
+    """Host time of one kernel wrapper call, in us: back-to-back calls on
+    one frozen row (its kernel only writes x0), so the device is never
+    what the host waits for."""
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    fcols, icols, clm, k_max, pct = args
+    icols = icols[:1].clone()
+    icols[:, bk.I_DONE] = 1
+    one = (fcols[:1].contiguous(), icols, clm[:1].contiguous(), k_max, pct)
+    bk.bisect(*one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        bk.bisect(*one)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
 def cycle_breakdown(system, opt, reps: int = 5):
     """Median (calculate, decide_batch inside it, optimize + solution)
     wall in ms over reps cycles; decide_batch is synchronized on both
@@ -391,8 +466,15 @@ def main() -> int:
     _build.library("bisect_kernel")
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, text in _build.build_logs.items():
-        log(f"  nvcc {name}: " + " | ".join(
-            ln.strip() for ln in text.splitlines() if "Used" in ln))
+        for kernel, line in ptxas_summary(text):
+            log(f"  nvcc {name}: {kernel}: {line}")
+    for form, pct in (("mean", None), ("tail", TAIL_PCT)):
+        for dt in (torch.float32, torch.float64):
+            log(f"  {form} form, {str(dt)[6:]}: resident blocks per SM "
+                f"{blocks_per_sm(dt, 2816, pct, False)} at k_max 2816 (128 "
+                f"threads: one row of 769-3072 states or four rows of at "
+                f"most 768), {blocks_per_sm(dt, 5632, pct, True)} at k_max "
+                f"5632 (256 threads: one row of more than 3072 states)")
 
     log("phase 2: kernels against their plain versions")
     spec = build_fleet(N_VARIANTS, SEED)
@@ -406,9 +488,9 @@ def main() -> int:
     lane_independence(calls)
     for dt, g in (("float32", groups), ("float64", groups64)):
         same = decide_lane_independence(g)
-        log(f"  decide_batch lanes, {dt}, {len(g)} groups x both backends: "
-            f"batch 16 under k_max 768/3072 against full width -> "
-            f"bit-identical={same}")
+        log(f"  decide_batch lanes, {dt}, {len(g)} groups x both backends, "
+            f"max_batch-64 and -256 lanes: batch 16 under k_max "
+            f"768/2816/3072/4096 against full width -> bit-identical={same}")
         if not same:
             raise AssertionError(f"decide_batch lane bits depend on the "
                                  f"batch or k_max bucket ({dt})")
@@ -494,6 +576,9 @@ def main() -> int:
         f"lane-stable prefix/row sums {t_stable:.3f} ms, torch.cumsum/"
         f"torch.sum {t_torch:.3f} ms; the torch reductions keep the lane "
         f"bits: {torch_same}")
+    log(f"  kernel wrapper host time per call (one frozen row, 200 calls): "
+        f"{wrapper_host_us(calls[0][1]):.1f} us; each kernel time below "
+        f"holds its calls' host time, since CUDA events bracket each call")
     rows = []
     replaces = "workload_variant_autoscaler_tpu/ops/pallas_kernel.py:326"
     for name in ("B1", "B2"):
@@ -509,8 +594,14 @@ def main() -> int:
             t_bytes += tb
             t_ops += to
         by = "bytes" if t_bytes > t_ops else "operations"
+        n_top = torch.cat([torch.clamp(a[1][:, bk.I_KOCC], max=a[3])
+                           for a in mine])
+        teams = [int((n_top <= 768).sum()),
+                 int(((n_top > 768) & (n_top <= 3072)).sum()),
+                 int((n_top > 3072).sum())]
         log(f"  {name}: {len(mine)} launches per cycle, kernel {ms:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}), plain {plain:.3f} ms per cycle")
+            f"bound {bnd:.4f} ms ({by}), plain {plain:.3f} ms per cycle; "
+            f"rows per team (warp / 128 / 256 threads): {teams}")
         rows.append({
             "name": name, "route": "cuda",
             "source": "workload_variant_autoscaler_tpu_torch/csrc/"

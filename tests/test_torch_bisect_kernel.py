@@ -14,6 +14,8 @@ The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py
 holds it against this plain version there.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -169,6 +171,24 @@ def test_wrapper_rejects_bad_inputs():
         tk.bisect(fcols, icols, clm[:, :-1], k)
     with pytest.raises(ValueError, match="dtype"):
         tk.bisect(fcols, icols, clm.float(), k)
+
+
+def test_ctypes_signatures_match_the_kernel_source():
+    """Every `extern "C"` function of csrc/bisect_kernel.cu is named in
+    `_build.SIGNATURES` with its number of arguments, and no other name
+    is: a changed launcher must not reach the card with a stale ctypes
+    signature."""
+    from workload_variant_autoscaler_tpu_torch.ops import _build
+
+    src = _build.SOURCES["bisect_kernel"].read_text()
+    exported = src[src.index('extern "C" {'):]
+    found = {name: len([a for a in args.split(",") if a.strip()])
+             for name, args in re.findall(r"\b(wva_\w+)\(([^)]*)\)\s*\{",
+                                          exported)}
+    declared = {name: len(argtypes) for name, (argtypes, _)
+                in _build.SIGNATURES["bisect_kernel"].items()}
+    assert len(found) >= 7
+    assert found == declared
 
 
 def test_cuda_requested_without_cuda_raises():

@@ -35,6 +35,12 @@ SIGNATURES = {
         "wva_bisect_mean_f64": (_BISECT, ctypes.c_int),
         "wva_bisect_tail_f32": (_BISECT, ctypes.c_int),
         "wva_bisect_tail_f64": (_BISECT, ctypes.c_int),
+        # (tail, f64, k_max) -> bytes, or -1 when k_max < 1
+        "wva_bisect_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_int),
+        # (tail, f64, k_max, long_team, *blocks_per_sm) -> cudaError_t
+        "wva_bisect_occupancy": ([ctypes.c_int] * 4
+                                 + [ctypes.POINTER(ctypes.c_int)],
+                                 ctypes.c_int),
         "wva_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }

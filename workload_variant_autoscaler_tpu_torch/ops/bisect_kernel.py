@@ -2,10 +2,11 @@
 
 Counterpart of the reference package's `ops/pallas_kernel.py`: the
 48/100-trip bisection over the state-dependent M/M/1/K solve runs in one
-kernel launch per form (`csrc/bisect_kernel.cu`), one thread block per
-row, with the row's full-grid prefix log service rates resident in
-shared memory for every trip. The prologue (boundary handling) and the
-epilogue (TPS margin, final analysis) are the same `_sizing_problem` /
+kernel call per form (`csrc/bisect_kernel.cu`), one team of threads per
+row (a warp, 128 or 256 threads, chosen from the row's own state count),
+each thread holding a run of the row's states for every trip. The
+prologue (boundary handling) and the epilogue (TPS margin, final
+analysis) are the same `_sizing_problem` /
 `_tail_problem` / `_sizing_result` helpers the `"batched"` path uses;
 only the trip loop runs in the kernel.
 
@@ -15,6 +16,8 @@ it launches the kernel (and counts the launch in `launches`) or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -42,8 +45,9 @@ NF_MEAN, NF_TAIL = 10, 12
 I_NMAX, I_KOCC, I_TTFT, I_INC, I_DONE = range(5)
 NI = 5
 
-# the most dynamic shared memory one block may use on Hopper
-SMEM_LIMIT = 227 * 1024
+# the most dynamic shared memory one block may use on Hopper (227 KB), less
+# 1 KB for the kernels' static scratch (at most 672 bytes)
+SMEM_LIMIT = 226 * 1024
 
 # kernel launches per form since the last reset_launches(); plain-version
 # runs on the CPU are not launches
@@ -216,6 +220,23 @@ def _check(fcols, icols, clm, k_max: int, tail_pct) -> None:
         raise ValueError("fcols, icols and clm must be contiguous")
 
 
+@functools.lru_cache(maxsize=64)
+def _launcher(form: str, dtype: torch.dtype, k_max: int):
+    """The C launcher of one form and dtype, once k_max is known to fit
+    the kernel's shared memory (kept per form, dtype and k_max, so a
+    launch pays neither lookup again)."""
+    lib = _build.library("bisect_kernel")
+    f64 = dtype == torch.float64
+    smem = lib.wva_bisect_smem_bytes(int(form == "tail"), int(f64), k_max)
+    if smem < 0:
+        raise ValueError(f"k_max={k_max} is not a state count")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"k_max={k_max} needs {smem} bytes of shared memory "
+                         f"per block; the {form} kernel takes at most "
+                         f"{SMEM_LIMIT}")
+    return getattr(lib, f"wva_bisect_{form}_{'f64' if f64 else 'f32'}")
+
+
 def bisect(fcols, icols, clm, k_max: int,
            tail_pct: float | None = None) -> torch.Tensor:
     """x_star [rows] of the bisection rows: the CUDA kernel for tensors on
@@ -227,18 +248,11 @@ def bisect(fcols, icols, clm, k_max: int,
         raise ValueError(f"unsupported device {clm.device}")
     form = "mean" if tail_pct is None else "tail"
     dtype = clm.dtype
-    smem = k_max * clm.element_size() * (1 if tail_pct is None else 3)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"k_max={k_max} needs {smem} bytes of shared memory "
-                         f"per block; the {form} kernel takes at most "
-                         f"{SMEM_LIMIT}")
+    fn = _launcher(form, dtype, k_max)
     rows = fcols.shape[0]
     x_star = torch.empty(rows, dtype=dtype, device=clm.device)
     if rows == 0:
         return x_star
-    lib = _build.library("bisect_kernel")
-    fn = getattr(lib, f"wva_bisect_{form}_"
-                      f"{'f64' if dtype == torch.float64 else 'f32'}")
     with torch.cuda.device(clm.device):
         stream = torch.cuda.current_stream(clm.device).cuda_stream
         err = fn(fcols.data_ptr(), icols.data_ptr(), clm.data_ptr(),
@@ -246,6 +260,7 @@ def bisect(fcols, icols, clm, k_max: int,
                  bisection_trips(dtype),
                  0.0 if tail_pct is None else float(tail_pct), stream)
     if err != 0:
+        lib = _build.library("bisect_kernel")
         raise RuntimeError(f"bisect kernel ({form}) launch failed: CUDA error "
                            f"{err} ({lib.wva_error_string(err).decode()})")
     launches[form] += 1

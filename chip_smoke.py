@@ -12,15 +12,23 @@ the kernel's choice of team), drives the port's
 analyze + optimize path (System.calculate ->
 decide_batch -> Manager.optimize -> generate_solution) at full fleet
 width, checks the decisions against the PyTorch trip loop and a CPU
-reference, times the kernels and the cycle, and prints one JSON line per
-the kernels and a final status line. Every phase raises on failure; the
-script exits non-zero when CUDA is absent or any check fails.
+reference, times the kernels and the cycle, then drives limited mode
+(the capacity-aware greedy, with ample and with scarce capacity), the
+staged path and the incremental engine's steady-state cycle at full
+width and holds each against its reference (phase 6). It prints one
+JSON line per the kernels and a final status line. Every phase raises
+on failure; the script exits non-zero when CUDA is absent or any check
+fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -35,6 +43,16 @@ N_VARIANTS = 512          # x 8 slice shapes = 4096 candidate lanes
 N_VARIANTS_F64 = 64       # the float64 kernel check's smaller fleet
 N_VARIANTS_CPU = 16       # the CPU reference check's fleet
 TIMING_REPS = 10
+
+# phase 6: limited-mode capacity per chip pool, as a multiple of what the
+# unlimited solution takes; the engine churn's length, the share of
+# variants whose load crosses an epsilon bucket each cycle, the cycles of
+# its capacity change and fleet grow, and the variants the grow adds
+AMPLE, SCARCE = 10.0, 0.6
+LIMITED_POLICY = "PriorityRoundRobin"
+ENGINE_CYCLES = 30
+CHURN_SHARE = 0.02
+CAPACITY_CHANGE_AT, GROW_AT, N_GROW = 15, 22, 16
 
 # H100 SXM peaks (NVIDIA data sheet; the special-function rate is 16
 # results per clock per SM for compute capability 9.0, at the 1.98 GHz
@@ -59,6 +77,20 @@ SLICE_SPEED = (1.0, 0.55, 0.4, 0.3, 0.35, 0.25, 0.65, 0.35)
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def env(name: str, value: str):
+    """Set an environment knob of the port for the block's duration."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = saved
 
 
 def ptxas_summary(text: str):
@@ -447,6 +479,332 @@ def cycle_breakdown(system, opt, reps: int = 5):
     return tuple(statistics.median(col) for col in zip(*samples))
 
 
+def limited_spec(spec, capacity):
+    from workload_variant_autoscaler_tpu_torch.models.spec import OptimizerSpec
+
+    return dataclasses.replace(
+        spec, capacity=dict(capacity),
+        optimizer=OptimizerSpec(unlimited=False,
+                                saturation_policy=LIMITED_POLICY))
+
+
+def sweep_outcomes(fn):
+    """Run fn() and return its result and what every vector fast pass of
+    the greedy returned in it (the servers it left to the sequential
+    loop; None where it stood down)."""
+    from workload_variant_autoscaler_tpu_torch.solver import greedy
+
+    seen = []
+    orig = greedy._vector_fast_pass
+
+    def spy(system, only, available):
+        out = orig(system, only, available)
+        seen.append(out)
+        return out
+
+    greedy._vector_fast_pass = spy
+    try:
+        return fn(), seen
+    finally:
+        greedy._vector_fast_pass = orig
+
+
+def limited_run(spec, dtype, backend="kernel", sweep="on"):
+    """One limited-mode cycle under WVA_VECTOR_GREEDY=sweep: (system,
+    optimizer spec, the candidate allocations before the greedy scaled
+    any, the sweep outcomes)."""
+    from workload_variant_autoscaler_tpu_torch import Manager, Optimizer
+
+    system, opt = make_system(spec, "cuda", dtype)
+    system.calculate(backend=backend)
+    pristine = {n: {a: x.clone() for a, x in s.all_allocations.items()}
+                for n, s in system.servers.items()}
+    with env("WVA_VECTOR_GREEDY", sweep):
+        _, seen = sweep_outcomes(
+            lambda: Manager(system, Optimizer(opt)).optimize())
+    system.generate_solution()
+    return system, opt, pristine, seen
+
+
+def greedy_ms(system, opt, pristine, mode: str, reps: int = 5) -> float:
+    """Median wall of Manager.optimize (the greedy and allocate_by_type)
+    under WVA_VECTOR_GREEDY=mode, on fresh clones of the candidates each
+    time (best effort scales them in place)."""
+    from workload_variant_autoscaler_tpu_torch import Manager, Optimizer
+
+    times = []
+    with env("WVA_VECTOR_GREEDY", mode):
+        for _ in range(reps):
+            for name, server in system.servers.items():
+                server.all_allocations = {
+                    a: x.clone() for a, x in pristine[name].items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Manager(system, Optimizer(opt)).optimize()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def limited_mode(spec, unlimited_system):
+    """Phase 6a: limited mode at full width in float32 on the kernels,
+    with capacity for AMPLE and SCARCE times the chips the unlimited
+    solution takes per pool, the vector sweep forced on (the default is
+    the sequential loop); then float64 decisions of backend "kernel"
+    against "batched" in both capacities, each under the default.
+    Returns (ample, scarce) capacities and the greedy times."""
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    used = {c: a.count for c, a in unlimited_system.allocate_by_type().items()}
+    caps = {"ample": {c: int(AMPLE * n) for c, n in used.items()},
+            "scarce": {c: int(SCARCE * n) for c, n in used.items()}}
+    log(f"  chips the unlimited solution takes per pool: {used}; ample "
+        f"{caps['ample']}, scarce {caps['scarce']} ({LIMITED_POLICY})")
+    times = {}
+    for label, cap in caps.items():
+        bk.reset_launches()
+        system, opt, pristine, seen = limited_run(limited_spec(spec, cap),
+                                                  torch.float32)
+        torch.cuda.synchronize()
+        launches = dict(bk.launches)
+        if launches["mean"] < 1 or launches["tail"] < 1:
+            raise AssertionError(f"{label}: a kernel was not launched: "
+                                 f"{launches}")
+        sized = {n for n, s in system.servers.items() if s.all_allocations}
+        allocs = system.allocation_solution.allocations
+        bad = [n for n, a in allocs.items()
+               if not (np.isfinite(a.cost) and np.isfinite(a.itl_average)
+                       and np.isfinite(a.ttft_average))]
+        pools = {c: (a.count, a.limit)
+                 for c, a in system.allocate_by_type().items()}
+        over = {c: cl for c, cl in pools.items() if cl[0] > cl[1]}
+        if bad or over:
+            raise AssertionError(f"{label}: bad allocations {bad[:5]}, "
+                                 f"pools over capacity {over}")
+        if label == "ample":
+            if seen != [set()]:
+                raise AssertionError("ample: the vector pass did not settle "
+                                     "every server")
+            if decisions(system) != decisions(unlimited_system):
+                raise AssertionError("ample: limited decisions differ from "
+                                     "the unlimited ones")
+        elif seen != [sized]:
+            raise AssertionError("scarce: the contended component did not "
+                                 "go to the sequential loop whole")
+        short = sum(1 for n, s in system.servers.items()
+                    if (a := s.allocation) is None or a.num_replicas
+                    < unlimited_system.servers[n].allocation.num_replicas)
+        log(f"  {label}: {len(allocs)} of {len(system.servers)} servers "
+            f"allocated, {short} below their unlimited replicas; vector pass "
+            f"left {len(seen[0])} servers to the sequential loop; pools "
+            f"(chips used, limit) {pools}; launches {launches}")
+        times[label] = {mode: greedy_ms(system, opt, pristine, mode)
+                        for mode in ("on", "off")}
+        log(f"  {label}: greedy (Manager.optimize, median of 5) with the "
+            f"sweep {times[label]['on']:.3f} ms, sequential "
+            f"{times[label]['off']:.3f} ms")
+    for label, cap in caps.items():
+        k64 = limited_run(limited_spec(spec, cap), torch.float64, "kernel",
+                          "off")[0]
+        b64 = limited_run(limited_spec(spec, cap), torch.float64, "batched",
+                          "off")[0]
+        dk, db = decisions(k64), decisions(b64)
+        diff = [n for n in dk if dk[n] != db[n]]
+        log(f"  {label}, float64: {len(diff)} of {len(dk)} servers' decisions "
+            f"differ between backend 'kernel' and 'batched'")
+        if diff:
+            raise AssertionError(f"{label}: float64 decisions differ: "
+                                 f"{diff[:5]}")
+    return caps, times
+
+
+def staged_path(spec, fused64):
+    """Phase 6a': the staged path (WVA_FUSED_SOLVE=off) in float64 on the
+    kernels decides as the fused path (phase 4's float64 system) does."""
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    with env("WVA_FUSED_SOLVE", "off"):
+        bk.reset_launches()
+        staged, opt = make_system(spec, "cuda", torch.float64)
+        cycle(staged, opt, "kernel")
+        launches = dict(bk.launches)
+    ds, df = decisions(staged), decisions(fused64)
+    diff = [n for n in ds if ds[n] != df[n]]
+    log(f"  staged path, float64: {len(diff)} of {len(ds)} servers' "
+        f"decisions differ from the fused path; launches {launches}")
+    if diff or launches["mean"] < 1 or launches["tail"] < 1:
+        raise AssertionError(f"staged path: decisions differ {diff[:5]} or "
+                             f"a kernel was not launched ({launches})")
+
+
+CYCLE_PARTS = ("wall", "calculate", "decide", "optimize", "finish", "gc")
+
+
+def churn_specs(caps):
+    """Phase 6b's ENGINE_CYCLES limited-mode specs: each cycle
+    CHURN_SHARE of the variants step their load by 10% (about five 2%
+    buckets); the capacity goes from ample to scarce at
+    CAPACITY_CHANGE_AT and N_GROW variants join at GROW_AT. Returns
+    (spec, live variants, scarce) per cycle."""
+    from workload_variant_autoscaler_tpu_torch.models.spec import (
+        OptimizerSpec, SystemSpec)
+
+    fleet = build_fleet(N_VARIANTS + N_GROW, SEED)
+    rng = np.random.default_rng(SEED + 3)
+    loads = {s.name: s.current_alloc.load for s in fleet.servers}
+    live, cap = N_VARIANTS, caps["ample"]
+    out = []
+    for c in range(ENGINE_CYCLES):
+        if c == CAPACITY_CHANGE_AT:
+            cap = caps["scarce"]
+        if c == GROW_AT:
+            live += N_GROW
+        if c:
+            names = [s.name for s in fleet.servers[:live]]
+            moved = max(1, round(CHURN_SHARE * live))
+            for i in rng.choice(live, moved, replace=False):
+                load = loads[names[i]]
+                loads[names[i]] = dataclasses.replace(
+                    load, arrival_rate=load.arrival_rate
+                    * float(rng.choice([0.9, 1.1])))
+        servers = [dataclasses.replace(
+            s, current_alloc=dataclasses.replace(s.current_alloc,
+                                                 load=loads[s.name]))
+            for s in fleet.servers[:live]]
+        out.append((SystemSpec(
+            accelerators=fleet.accelerators, profiles=fleet.profiles,
+            service_classes=fleet.service_classes, servers=servers,
+            capacity=dict(cap), optimizer=OptimizerSpec(
+                unlimited=False, saturation_policy=LIMITED_POLICY)),
+            live, cap is caps["scarce"]))
+    return out
+
+
+def engine_churn(caps):
+    """Phase 6b: the churn_specs cycles, float32 on the kernels, first
+    through one persistent IncrementalSolveEngine alone, then each spec
+    again through a from-scratch engine (full_every=1); the solutions
+    must be equal every cycle. Returns the per-cycle records: each
+    engine's CYCLE_PARTS in ms (the wall; engine.calculate, decide_batch
+    inside it, synchronized on both sides; optimize(warm);
+    generate_solution + finish_cycle; the time the cyclic garbage
+    collector ran inside the wall) and the B1/B2 launches of the
+    persistent engine's cycle (the launch counts are set to 0 just before
+    it and read just after)."""
+    from workload_variant_autoscaler_tpu_torch import (
+        IncrementalSolveEngine, Manager, Optimizer, System)
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+    from workload_variant_autoscaler_tpu_torch.ops import fused
+
+    specs = churn_specs(caps)
+    spent = {"decide": 0.0, "gc": 0.0}
+    gc_started = [0.0]
+    orig_decide = fused.decide_batch
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_started[0] = time.perf_counter()
+        else:
+            spent["gc"] += (time.perf_counter() - gc_started[0]) * 1e3
+
+    def timed_decide(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_decide(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent["decide"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def run(spec, eng):
+        system = System(device="cuda", dtype=torch.float32)
+        opt = system.set_from_spec(spec)
+        torch.cuda.synchronize()
+        bk.reset_launches()
+        spent["decide"] = spent["gc"] = 0.0
+        t0 = time.perf_counter()
+        stats = eng.calculate(system, backend="kernel", optimizer_spec=opt)
+        t1 = time.perf_counter()
+        warm = eng.warm_start()
+        Manager(system, Optimizer(opt)).optimize(warm=warm)
+        t2 = time.perf_counter()
+        solution = system.generate_solution()
+        eng.finish_cycle(system)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts = {"wall": (t3 - t0) * 1e3, "calculate": (t1 - t0) * 1e3,
+                 "decide": spent["decide"], "optimize": (t2 - t1) * 1e3,
+                 "finish": (t3 - t2) * 1e3, "gc": spent["gc"]}
+        return solution, stats, warm is not None, parts, dict(bk.launches)
+
+    def brief(parts):
+        return ", ".join(f"{k} {parts[k]:.3f}" for k in CYCLE_PARTS)
+
+    engine = IncrementalSolveEngine()
+    fused.decide_batch = timed_decide
+    gc.callbacks.append(on_gc)
+    try:
+        persistent = [run(spec, engine) for spec, _live, _scarce in specs]
+        replay = [run(spec, IncrementalSolveEngine(full_every=1))
+                  for spec, _live, _scarce in specs]
+    finally:
+        fused.decide_batch = orig_decide
+        gc.callbacks.remove(on_gc)
+    records = []
+    for c, ((_spec, live, scarce), mine, ref) in enumerate(
+            zip(specs, persistent, replay)):
+        sol, stats, warm, parts, launches = mine
+        same = sol == ref[0]
+        records.append(dict(cycle=c, full=stats.full, warm=warm,
+                            solved=stats.lanes_solved,
+                            skipped=stats.lanes_skipped, parts=parts,
+                            from_scratch=ref[3], scarce=scarce,
+                            launches=launches))
+        log(f"  cycle {c:2d}: {live} variants, "
+            f"{'scarce' if scarce else 'ample'}, "
+            f"{'full' if stats.full else 'incremental'}"
+            f"{' (' + stats.reason + ')' if stats.reason else ''}, "
+            f"greedy {'warm' if warm else 'cold'}: lanes solved "
+            f"{stats.lanes_solved} skipped {stats.lanes_skipped}, "
+            f"launches {launches}; ms: {brief(parts)}; from scratch: "
+            f"{brief(ref[3])}; equal={same}")
+        if not same:
+            raise AssertionError(f"cycle {c}: the incremental engine's "
+                                 f"solution differs from a from-scratch "
+                                 f"one")
+    return records
+
+
+def engine_summary(records) -> None:
+    """Phase 6b's summary: the persistent engine's launches over the
+    churn (raises when a kernel never ran), and the median of each cycle
+    part for its warm steady-state cycles, ample and scarce, and for the
+    from-scratch engine's cycles."""
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    launches = {form: sum(r["launches"][form] for r in records)
+                for form in bk.launches}
+    log(f"  engine churn, the persistent engine's {len(records)} cycles: "
+        f"kernel launches {launches}")
+    if launches["mean"] < 1 or launches["tail"] < 1:
+        raise AssertionError(f"engine churn: a kernel was not launched: "
+                             f"{launches}")
+
+    def medians(cycles):
+        parts = [f"{k} {statistics.median(c[k] for c in cycles):.3f}"
+                 for k in CYCLE_PARTS]
+        less_gc = statistics.median(c["wall"] - c["gc"] for c in cycles)
+        return ", ".join(parts) + f", wall less gc {less_gc:.3f}"
+
+    for label, scarce in (("ample", False), ("scarce", True)):
+        steady = [r for r in records if r["warm"] and r["scarce"] == scarce]
+        log(f"  steady-state cycle ({label}, warm greedy, {len(steady)} "
+            f"cycles, lanes solved median "
+            f"{statistics.median(r['solved'] for r in steady)}), median ms: "
+            f"{medians([r['parts'] for r in steady])}")
+    log(f"  full cycle (from-scratch engine, all {len(records)} cycles), "
+        f"median ms: {medians([r['from_scratch'] for r in records])}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -611,6 +969,22 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": None,
         })
+
+    log("phase 6: limited mode, the staged path and the incremental engine "
+        "at full width (float32, backend='kernel', unless said)")
+    caps, greedy_times = limited_mode(spec, system)
+    staged_path(spec, k64)
+    # the engine's cycles run with none of the earlier phases' objects
+    # alive, as in a controller process
+    del system, sys64, k64, b64, b32, ref, dev, solution
+    del calls, calls64, groups, groups64
+    gc.collect()
+    engine_summary(engine_churn(caps))
+    log(f"  greedy ms (median of 5): ample sweep "
+        f"{greedy_times['ample']['on']:.3f}, ample sequential "
+        f"{greedy_times['ample']['off']:.3f}, scarce after the sweep's "
+        f"fall-back {greedy_times['scarce']['on']:.3f}, scarce sequential "
+        f"{greedy_times['scarce']['off']:.3f}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -232,3 +232,208 @@ def test_size_batch_kernel_entries_on_card(card):
         assert torch.equal(ref.feasible, got.feasible)
         np.testing.assert_allclose(got.lam_star.cpu().numpy(),
                                    ref.lam_star.cpu().numpy(), rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# limited mode, the candidate arena and the incremental engine on the card
+# ---------------------------------------------------------------------------
+
+def port_fleet(servers, capacity, unlimited=True, policy="None"):
+    """A SystemSpec of the port: llama-8b on v5e-1, v5e-4 and v5p-4 (the
+    profiles of tests/helpers.py), two service classes."""
+    from workload_variant_autoscaler_tpu_torch.models import (
+        ModelSliceProfile, ModelTarget, OptimizerSpec, ServiceClassSpec,
+        SystemSpec, make_slice)
+
+    return SystemSpec(
+        accelerators=[make_slice("v5e", 1, "1x1"), make_slice("v5e", 4, "2x2"),
+                      make_slice("v5p", 4, "2x2x1")],
+        profiles=[
+            ModelSliceProfile("llama-8b", "v5e-1", 6.973, 0.027, 5.2, 0.1,
+                              max_batch_size=64, at_tokens=128),
+            ModelSliceProfile("llama-8b", "v5e-4", 3.2, 0.012, 2.4, 0.04,
+                              max_batch_size=192, at_tokens=128),
+            ModelSliceProfile("llama-8b", "v5p-4", 2.1, 0.008, 1.5, 0.025,
+                              max_batch_size=256, at_tokens=128)],
+        service_classes=[
+            ServiceClassSpec("Premium", 1, (ModelTarget(
+                "llama-8b", slo_itl=24.0, slo_ttft=500.0,
+                slo_ttft_percentile=0.95),)),
+            ServiceClassSpec("Freemium", 10, (ModelTarget(
+                "llama-8b", slo_itl=150.0, slo_ttft=1500.0),))],
+        servers=servers, capacity=dict(capacity),
+        optimizer=OptimizerSpec(unlimited=unlimited,
+                                saturation_policy=policy))
+
+
+def port_server(name, rpm, service_class="Premium", min_replicas=1):
+    from workload_variant_autoscaler_tpu_torch.models import (
+        AllocationData, ServerLoadSpec, ServerSpec)
+
+    return ServerSpec(
+        name=name, service_class=service_class, model="llama-8b",
+        min_num_replicas=min_replicas,
+        current_alloc=AllocationData(
+            accelerator="v5e-1", num_replicas=1,
+            load=ServerLoadSpec(arrival_rate=rpm, avg_in_tokens=128,
+                                avg_out_tokens=128)))
+
+
+@pytest.mark.parametrize("policy", ["None", "PriorityExhaustive",
+                                    "PriorityRoundRobin", "RoundRobin"])
+def test_greedy_sweep_on_card_equals_sequential(card, policy, monkeypatch):
+    """30 random fleets (tests/test_shard.py's draw): the vector sweep on
+    the card settles what it settles exactly as the sequential greedy
+    does on the host."""
+    import random
+
+    from workload_variant_autoscaler_tpu_torch import System
+    from workload_variant_autoscaler_tpu_torch.models import (
+        Allocation, SaturationPolicy)
+    from workload_variant_autoscaler_tpu_torch.solver import greedy
+
+    def fleet(seed):
+        rng = random.Random(seed)
+        servers = [port_server(f"s{i:03d}", 1200.0, rng.choice(
+            ["Premium", "Freemium"])) for i in range(24)]
+        top = 600 if seed % 2 else 60
+        system = System(device=card, dtype=torch.float32)
+        system.set_from_spec(port_fleet(servers, {
+            "v5e": rng.randint(0, top), "v5p": rng.randint(0, top)}))
+        for i in range(24):
+            allocs = {}
+            for acc in rng.sample(["v5e-1", "v5e-4", "v5p-4"],
+                                  rng.randint(0, 3)):
+                a = Allocation(accelerator=acc, num_replicas=rng.randint(0, 4),
+                               cost=rng.choice([10.0, 20.0, 20.0, 40.0]))
+                a.value = rng.choice([5.0, 10.0, 10.0, 30.0])
+                allocs[acc] = a
+            system.servers[f"s{i:03d}"].all_allocations = allocs
+        return system
+
+    def snap(system):
+        return {n: None if (a := s.allocation) is None
+                else (a.accelerator, a.num_replicas, a.cost, a.value)
+                for n, s in system.servers.items()}
+
+    pol = SaturationPolicy.parse(policy)
+    settled = 0
+    for seed in range(30):
+        monkeypatch.setenv("WVA_VECTOR_GREEDY", "on")
+        swept = fleet(seed)
+        settled += greedy._vector_fast_pass(
+            swept, None, dict(swept.capacity)) == set()
+        greedy.solve_greedy(swept, pol)
+        monkeypatch.setenv("WVA_VECTOR_GREEDY", "off")
+        seq = fleet(seed)
+        greedy.solve_greedy(seq, pol)
+        assert snap(swept) == snap(seq), seed
+    assert settled >= 5
+
+
+def list_path_pack(rows, dtype, device, quantum=16):
+    """The list path the arena must match bit for bit: make_queue_batch
+    and the SLO columns, padded to a multiple of `quantum` with benign
+    invalid lanes (alpha=1, out_tokens=2, max_batch=occupancy=1,
+    valid=False, zeros elsewhere), and make_epilogue_batch."""
+    from workload_variant_autoscaler_tpu_torch.ops import fused
+
+    q = tb.make_queue_batch(*(rows[c] for c in QUEUE_COLS), dtype=dtype,
+                            device=device)
+    slo = tb.SLOTargets(*(torch.as_tensor(rows[c], dtype=dtype,
+                                          device=device)
+                          for c in ("ttft", "itl", "tps")))
+    pad = (-q.batch_size) % quantum
+
+    def pad_with(a, fill):
+        return torch.cat([a, torch.full((pad,), fill, dtype=a.dtype,
+                                        device=a.device)])
+
+    fills = dict(alpha=1.0, out_tokens=2.0, max_batch=1, occupancy=1,
+                 valid=False)
+    q = tb.QueueBatch(**{k: pad_with(v, fills.get(k, 0.0))
+                         for k, v in q._asdict().items()})
+    slo = tb.SLOTargets(*(pad_with(t, 0.0) for t in slo))
+    epi = None
+    if "demand" in rows:
+        epi = fused.make_epilogue_batch(
+            rows["demand"], rows["min_replicas"], rows["cost_rate"], dtype,
+            device, pad_to=q.batch_size)
+    return q, slo, epi
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_arena_pack_on_card_is_bit_identical(card, dtype, epilogue):
+    from workload_variant_autoscaler_tpu_torch import System
+
+    rows = dict(alpha=[6.973, 3.2, 9.0], beta=[0.027, 0.012, 0.06],
+                gamma=[5.2, 2.4, 7.0], delta=[0.1, 0.04, 0.15],
+                in_tokens=[128.0, 128.0, 256.0],
+                out_tokens=[128.0, 128.0, 200.0], max_batch=[16, 23, 20],
+                ttft=[500.0, 500.0, 2000.0], itl=[24.0, 24.0, 80.0],
+                tps=[0.0, 0.0, 0.0])
+    if epilogue:
+        rows.update(demand=[12.5, 0.0, 3.25], min_replicas=[1, 0, 3],
+                    cost_rate=[20.0, 80.0, 340.0])
+    packs = zip(list_path_pack(rows, dtype, card),
+                System(device=card, dtype=dtype)._pack_group(rows))
+    for k, (want, got) in enumerate(packs):
+        if k == 2 and not epilogue:
+            assert want is None and got is None
+            continue
+        for a, b in zip(want, got):
+            assert a.device.type == b.device.type == card.type
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("unlimited,policy", [(True, "None"),
+                                              (False, "RoundRobin")])
+def test_engine_churn_on_card_equals_from_scratch(card, unlimited, policy):
+    """30 cycles of seeded churn (load steps and sub-epsilon jitter,
+    zero-load transitions, grow/shrink, capacity changes) through a
+    persistent engine and a from-scratch one, both on the card: equal
+    solutions every cycle."""
+    import random
+
+    from workload_variant_autoscaler_tpu_torch import (
+        IncrementalSolveEngine, Manager, Optimizer, System)
+
+    def cycle(spec, engine):
+        system = System(device=card, dtype=torch.float32)
+        opt = system.set_from_spec(spec)
+        stats = engine.calculate(system, backend="kernel",
+                                 optimizer_spec=opt)
+        Manager(system, Optimizer(opt)).optimize(warm=engine.warm_start())
+        solution = system.generate_solution()
+        engine.finish_cycle(system)
+        return solution, stats
+
+    rng = random.Random(0x17C)
+    names = [f"v{i}" for i in range(12)]
+    live = set(names[:8])
+    loads = {n: 300.0 + 40.0 * i for i, n in enumerate(names)}
+    capacity = {"v5e": 40, "v5p": 12}
+    engine = IncrementalSolveEngine(epsilon=0.05, full_every=7)
+    skipped = 0
+    for c in range(30):
+        for n in rng.sample(sorted(live), 2):
+            f = rng.choice([1.0, 1.3, 0.7, 1.0125, 0.9875, 0.0])
+            loads[n] = loads[n] * f if f else 200.0 * rng.randrange(2)
+        if rng.random() < 0.15:
+            pick = rng.choice(names)
+            if pick in live and len(live) > 4:
+                live.discard(pick)
+            else:
+                live.add(pick)
+        if rng.random() < 0.1:
+            capacity = {"v5e": rng.choice([30, 40, 60]), "v5p": 12}
+        servers = [port_server(n, loads[n], "Premium" if int(n[1:]) % 2
+                               else "Freemium") for n in sorted(live)]
+        spec = port_fleet(servers, capacity, unlimited, policy)
+        got, stats = cycle(spec, engine)
+        want, _ = cycle(spec, IncrementalSolveEngine(epsilon=0.05,
+                                                     full_every=1))
+        assert got == want, c
+        skipped += stats.lanes_skipped > 0
+    assert skipped > 15

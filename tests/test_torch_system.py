@@ -165,14 +165,21 @@ def test_spec_from_reference_carries_every_field():
     assert asdict(carried) == asdict(spec)
 
 
-def test_limited_mode_is_not_ported_yet():
-    spec = fleet_spec(fleet_servers()[:2])
-    spec.optimizer = OptimizerSpec(unlimited=False)
-    system = port.System(device="cpu")
-    opt = system.set_from_spec(port.spec_from_reference(asdict(spec)))
-    system.calculate()
-    with pytest.raises(NotImplementedError, match="limited"):
-        port.Manager(system, port.Optimizer(opt)).optimize()
+@pytest.mark.parametrize("policy", ["None", "PriorityExhaustive",
+                                    "PriorityRoundRobin", "RoundRobin"])
+def test_limited_mode_matches_reference(policy):
+    """Limited mode on fleet_servers() with capacity for fewer v5e chips
+    than the unlimited solution takes (76): the greedy must move some
+    servers to v5p or best-effort, as the JAX package does."""
+    spec = fleet_spec(fleet_servers())
+    spec.capacity.update({"v5e": 48, "v5p": 8})
+    spec.optimizer = OptimizerSpec(unlimited=False, saturation_policy=policy)
+    ref = System()
+    ref, ref_sol = run_reference(ref, ref.set_from_spec(spec), "batched")
+    got, got_sol = run_port(spec, "kernel")
+    assert_same_decisions(ref, ref_sol, got, got_sol)
+    used = got.allocate_by_type()
+    assert used["v5e"].count <= 48 < 76
 
 
 def test_unknown_backend_rejected():
@@ -187,6 +194,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import workload_variant_autoscaler_tpu_torch as p\n"
         "import workload_variant_autoscaler_tpu_torch.ops.fused\n"
         "import workload_variant_autoscaler_tpu_torch.ops.bisect_kernel\n"
+        "import workload_variant_autoscaler_tpu_torch.ops.arena\n"
+        "import workload_variant_autoscaler_tpu_torch.solver.greedy\n"
+        "import workload_variant_autoscaler_tpu_torch.solver.incremental\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'workload_variant_autoscaler_tpu'\n"

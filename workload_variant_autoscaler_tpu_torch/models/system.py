@@ -3,24 +3,25 @@
 Counterpart of the reference package's `models/system.py`: every
 (server, slice-shape) candidate of the fleet is sized in one decision
 per sizing group (`ops/fused.py decide_batch`), on the device the System
-was built for, with one readback of the packed result per group.
+was built for, with one readback of the packed result per group. The
+staged path (WVA_FUSED_SOLVE=off) sizes, counts replicas on the host and
+re-analyzes in separate steps; it is the fused decision's exactness
+reference.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops import fused
-from ..ops.batched import (
-    QueueBatch,
-    SLOTargets,
-    k_max_bucket,
-    k_max_for,
-    make_queue_batch,
-)
+from ..ops.arena import CandidateArena
+from ..ops.batched import analyze_batch, k_max_bucket, k_max_for
 from ..utils.device import readback, resolve_device, resolve_dtype
 from .allocation import (
     Allocation,
@@ -41,8 +42,13 @@ from .spec import (
     resolve_for_context,
 )
 
-# candidate-axis quantum: groups are padded to a multiple of it
-LANE_BUCKET = 16
+
+def fused_solve_enabled() -> bool:
+    """WVA_FUSED_SOLVE (default on): decide each sizing group in one
+    decide_batch. `off` runs the staged path (size, host replica loop,
+    re-analysis); both publish identical decisions."""
+    return os.environ.get("WVA_FUSED_SOLVE", "").strip().lower() not in (
+        "off", "false", "0", "disabled")
 
 
 @dataclass
@@ -67,33 +73,6 @@ def _percentile_groups(pairs, ttft_percentile: float | None):
     return groups
 
 
-def _pad_to_multiple(q: QueueBatch, targets: SLOTargets, m: int):
-    """Pad the candidate batch to a multiple of m with invalid benign
-    lanes (alpha=1, out_tokens=2, max_batch=occupancy=1, valid=False),
-    as the reference package's `parallel.pad_to_multiple` does."""
-    pad = (-q.batch_size) % m
-    if pad == 0:
-        return q, targets
-
-    def pad_with(a, fill):
-        return torch.cat([a, torch.full((pad,), fill, dtype=a.dtype,
-                                        device=a.device)])
-
-    q = QueueBatch(
-        alpha=pad_with(q.alpha, 1.0),
-        beta=pad_with(q.beta, 0.0),
-        gamma=pad_with(q.gamma, 0.0),
-        delta=pad_with(q.delta, 0.0),
-        in_tokens=pad_with(q.in_tokens, 0.0),
-        out_tokens=pad_with(q.out_tokens, 2.0),
-        max_batch=pad_with(q.max_batch, 1),
-        occupancy=pad_with(q.occupancy, 1),
-        valid=pad_with(q.valid, False),
-    )
-    targets = SLOTargets(*[pad_with(t, 0.0) for t in targets])
-    return q, targets
-
-
 class System:
     """The fleet registry, sized on `device` (default cuda) in `dtype`
     (default float32)."""
@@ -108,9 +87,14 @@ class System:
         self.capacity: dict[str, int] = {}  # chip generation -> chips
         self.allocation_by_type: dict[str, AllocationByType] = {}
         self.allocation_solution: Optional[AllocationSolution] = None
+        # resident packing buffers of the sizing groups (ops/arena.py);
+        # the incremental engine attaches its own, which outlives the
+        # per-cycle System
+        self.arena = CandidateArena()
         # candidate lanes examined by the LAST calculate() call (kernel
         # lanes + zero-load allocations), and the distinct lanes it sized
-        # after identical-lane dedup (_dedup_rows)
+        # after identical-lane dedup (_dedup_rows; all of them on the
+        # staged path)
         self.last_solve_lanes = 0
         self.last_unique_lanes = 0
 
@@ -180,7 +164,8 @@ class System:
     # -- candidate analysis ---------------------------------------------
 
     def calculate(self, backend: str = "kernel",
-                  ttft_percentile: float | None = None) -> None:
+                  ttft_percentile: float | None = None,
+                  only: Optional[set] = None) -> None:
         """Compute candidate allocations for every server.
 
         backend="kernel": the bisection runs in the CUDA kernels
@@ -189,6 +174,9 @@ class System:
         ttft_percentile: size the TTFT SLO against this percentile of
         the TTFT distribution instead of its mean, for service classes
         without their own slo-ttft-percentile.
+        only: restrict candidate computation to these server names,
+        leaving every other server's all_allocations untouched (the
+        incremental engine sizes its changed sub-batch through here).
         """
         if backend not in fused.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
@@ -197,15 +185,17 @@ class System:
         self.last_unique_lanes = 0
         for acc in self.accelerators.values():
             acc.calculate()
-        pairs = self._candidate_pairs()
+        pairs = self._candidate_pairs(only=only)
         for p, group in _percentile_groups(pairs, ttft_percentile).items():
-            self._size_group_fused(group, backend=backend,
-                                   ttft_percentile=(p or None))
+            self._size_group(group, backend=backend,
+                             ttft_percentile=(p or None))
 
-    def _candidate_pairs(self):
+    def _candidate_pairs(self, only: Optional[set] = None):
         """Feasible (server, acc) candidates with resolved profile/target."""
         sized_pairs = []   # need a kernel solve
         for server in self.servers.values():
+            if only is not None and server.name not in only:
+                continue
             server.all_allocations = {}
             load = server.load
             if load is None or load.arrival_rate < 0 or load.avg_in_tokens < 0 \
@@ -242,16 +232,26 @@ class System:
             alloc.value = server.cur_allocation.transition_penalty(alloc)
         server.all_allocations[acc_name] = alloc
 
-    def _group_rows(self, pairs) -> dict[str, list]:
-        """Host rows for one sizing group: the queue and SLO columns plus
-        the epilogue inputs (aggregate demand, the min-replica floor, the
-        per-replica cost rate)."""
+    def _size_group(self, pairs, backend: str,
+                    ttft_percentile: float | None) -> None:
+        if fused_solve_enabled():
+            self._size_group_fused(pairs, backend=backend,
+                                   ttft_percentile=ttft_percentile)
+        else:
+            self._size_group_staged(pairs, backend=backend,
+                                    ttft_percentile=ttft_percentile)
+
+    def _group_rows(self, pairs, epilogue: bool) -> dict[str, list]:
+        """Host rows for one sizing group: the queue and SLO columns and,
+        with `epilogue`, the fused decision's inputs (aggregate demand,
+        the min-replica floor, the per-replica cost rate)."""
         rows: dict[str, list] = {
             "alpha": [], "beta": [], "gamma": [], "delta": [],
             "in_tokens": [], "out_tokens": [], "max_batch": [],
             "ttft": [], "itl": [], "tps": [],
-            "demand": [], "min_replicas": [], "cost_rate": [],
         }
+        if epilogue:
+            rows.update(demand=[], min_replicas=[], cost_rate=[])
         for server, acc_name, profile, target in pairs:
             out_tok = server.load.avg_out_tokens
             rows["alpha"].append(profile.alpha)
@@ -265,32 +265,19 @@ class System:
             rows["ttft"].append(target.slo_ttft)
             rows["itl"].append(target.slo_itl)
             rows["tps"].append(target.slo_tps)
-            rows["demand"].append(replica_demand(
-                server.load.arrival_rate, target.slo_tps, out_tok))
-            rows["min_replicas"].append(server.min_num_replicas)
-            rows["cost_rate"].append(
-                self.accelerators[acc_name].cost
-                * self.models[server.model_name].num_instances(acc_name))
+            if epilogue:
+                rows["demand"].append(replica_demand(
+                    server.load.arrival_rate, target.slo_tps, out_tok))
+                rows["min_replicas"].append(server.min_num_replicas)
+                rows["cost_rate"].append(
+                    self.accelerators[acc_name].cost
+                    * self.models[server.model_name].num_instances(acc_name))
         return rows
 
     def _pack_group(self, rows):
-        """Device-ready (q, slo, epi) for one group, padded to the lane
-        bucket."""
-        q = make_queue_batch(rows["alpha"], rows["beta"], rows["gamma"],
-                             rows["delta"], rows["in_tokens"],
-                             rows["out_tokens"], rows["max_batch"],
-                             dtype=self.dtype, device=self.device)
-
-        def col(name):
-            return torch.as_tensor(rows[name], dtype=self.dtype,
-                                   device=self.device)
-
-        slo = SLOTargets(ttft=col("ttft"), itl=col("itl"), tps=col("tps"))
-        q, slo = _pad_to_multiple(q, slo, LANE_BUCKET)
-        epi = fused.make_epilogue_batch(
-            rows["demand"], rows["min_replicas"], rows["cost_rate"],
-            self.dtype, self.device, pad_to=q.batch_size)
-        return q, slo, epi
+        """Device-ready (q, slo, epi|None) for one group, padded to the
+        arena's lane bucket on the System's device in its dtype."""
+        return self.arena.pack(rows, device=self.device, dtype=self.dtype)
 
     # the columns that fully determine a lane's result (occupancy derives
     # from max_batch; the group's percentile is shared)
@@ -326,7 +313,7 @@ class System:
         size -> replica-count -> re-analyze -> value on the device, ONE
         readback of the packed result, allocations materialized for the
         feasible lanes only. Identical candidate lanes are solved once."""
-        all_rows = self._group_rows(pairs)
+        all_rows = self._group_rows(pairs, epilogue=True)
         n_eff = all_rows["max_batch"]
         rows, lane_of = self._dedup_rows(all_rows)
         self.last_unique_lanes += len(rows["alpha"])
@@ -357,6 +344,63 @@ class System:
                 ttft=ttfts[lane],
                 rho=rhos[lane],
                 max_arrv_rate_per_replica=rate_stars[lane] / 1000.0,
+            )
+            alloc.value = alloc.cost
+            self._value_and_store(server, acc_name, alloc)
+
+    def _size_group_staged(self, pairs, backend: str = "kernel",
+                           ttft_percentile: float | None = None) -> None:
+        """The staged path (WVA_FUSED_SOLVE=off): sizing, the replica
+        count as a host loop, then the per-replica re-analysis, with one
+        readback after each device step. The reference the fused
+        decision is held against."""
+        rows = self._group_rows(pairs, epilogue=False)
+        n_eff = rows["max_batch"]
+        self.last_unique_lanes += len(n_eff)     # no dedup on this path
+        # K bucketed for shape stability under load drift (see k_max_bucket)
+        k_max = k_max_bucket(k_max_for(n_eff))
+        q, slo, _epi = self._pack_group(rows)
+        dtype = q.alpha.dtype
+        sized = fused.size_stage(q, slo, k_max, ttft_percentile, backend)
+        feasible, rate_star = readback(torch.stack(
+            [sized.feasible.to(dtype), sized.throughput]))
+        rate_star = rate_star * 1000.0  # req/sec per replica
+
+        # replica counts + per-replica rates on the host, sized to the
+        # padded batch so the re-analysis reuses the same shape
+        num_replicas = np.zeros(q.batch_size, dtype=np.int64)
+        per_replica_rate = np.zeros(q.batch_size)
+        for i, (server, acc_name, profile, target) in enumerate(pairs):
+            if not feasible[i] or rate_star[i] <= 0:
+                continue
+            total = replica_demand(
+                server.load.arrival_rate, target.slo_tps, server.load.avg_out_tokens
+            )
+            num_replicas[i] = max(
+                math.ceil(total / rate_star[i]), server.min_num_replicas
+            )
+            per_replica_rate[i] = total / num_replicas[i]
+
+        per_rep = analyze_batch(q, per_replica_rate, k_max)
+        itl_a, ttft_a, rho_a, rate_ok, max_batch_a = readback(torch.stack([
+            per_rep["avg_token_time"], per_rep["ttft"], per_rep["rho"],
+            per_rep["valid_rate"].to(dtype), q.max_batch.to(dtype)]))
+
+        for i, (server, acc_name, profile, target) in enumerate(pairs):
+            if not feasible[i] or num_replicas[i] <= 0 or not rate_ok[i]:
+                continue
+            acc = self.accelerators[acc_name]
+            model = self.models[server.model_name]
+            cost = acc.cost * model.num_instances(acc_name) * int(num_replicas[i])
+            alloc = Allocation(
+                accelerator=acc_name,
+                num_replicas=int(num_replicas[i]),
+                batch_size=int(max_batch_a[i]),
+                cost=cost,
+                itl=float(itl_a[i]),
+                ttft=float(ttft_a[i]),
+                rho=float(rho_a[i]),
+                max_arrv_rate_per_replica=float(rate_star[i]) / 1000.0,
             )
             alloc.value = alloc.cost
             self._value_and_store(server, acc_name, alloc)

@@ -19,12 +19,11 @@ import torch
 
 from .batched import (
     QueueBatch,
+    SizingResult,
     SLOTargets,
     _analyze_core,
-    _bisect,
-    _sizing_problem,
-    _sizing_result,
-    _tail_problem,
+    size_batch,
+    size_batch_tail,
 )
 from .bisect_kernel import size_batch_kernel, size_batch_tail_kernel
 
@@ -95,24 +94,29 @@ def _epilogue(q: QueueBatch, sized, epi: EpilogueBatch,
     ])
 
 
+def size_stage(q: QueueBatch, targets: SLOTargets, k_max: int,
+               ttft_percentile: float | None = None,
+               backend: str = "kernel") -> SizingResult:
+    """The sizing of one group (mean form, or tail form at
+    ttft_percentile) through `backend`; shared by decide_batch and the
+    staged path (models/system.py)."""
+    if backend == "kernel":
+        if ttft_percentile is not None:
+            return size_batch_tail_kernel(q, targets, k_max,
+                                          ttft_percentile=ttft_percentile)
+        return size_batch_kernel(q, targets, k_max)
+    if backend == "batched":
+        if ttft_percentile is not None:
+            return size_batch_tail(q, targets, k_max,
+                                   ttft_percentile=ttft_percentile)
+        return size_batch(q, targets, k_max)
+    raise ValueError(f"unknown backend {backend!r}; expected one of "
+                     f"{BACKENDS}")
+
+
 def decide_batch(q: QueueBatch, targets: SLOTargets, epi: EpilogueBatch,
                  k_max: int, ttft_percentile: float | None = None,
                  backend: str = "kernel") -> torch.Tensor:
     """The packed [N_ROWS, B] decision of one sizing group."""
-    if backend == "kernel":
-        if ttft_percentile is not None:
-            sized = size_batch_tail_kernel(q, targets, k_max,
-                                           ttft_percentile=ttft_percentile)
-        else:
-            sized = size_batch_kernel(q, targets, k_max)
-    elif backend == "batched":
-        if ttft_percentile is not None:
-            prob, eval_y = _tail_problem(q, targets, k_max, ttft_percentile)
-        else:
-            prob, eval_y = _sizing_problem(q, targets, k_max)
-        x_star = _bisect(prob, eval_y, q.alpha.dtype)
-        sized = _sizing_result(q, targets, prob, x_star, k_max)
-    else:
-        raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{BACKENDS}")
+    sized = size_stage(q, targets, k_max, ttft_percentile, backend)
     return _epilogue(q, sized, epi, k_max)

@@ -9,7 +9,7 @@ from typing import Optional
 
 from ..models import System
 from ..models.spec import OptimizerSpec
-from .solver import Solver
+from .solver import Solver, WarmStart
 
 
 class Optimizer:
@@ -18,12 +18,13 @@ class Optimizer:
         self.solver: Optional[Solver] = None
         self.solution_time_msec: float = 0.0
 
-    def optimize(self, system: System) -> None:
+    def optimize(self, system: System,
+                 warm: Optional[WarmStart] = None) -> None:
         if self.spec is None:
             raise ValueError("missing optimizer spec")
         self.solver = Solver(self.spec)
         start = time.perf_counter()
-        self.solver.solve(system)
+        self.solver.solve(system, warm=warm)
         self.solution_time_msec = (time.perf_counter() - start) * 1000.0
 
 
@@ -34,6 +35,6 @@ class Manager:
         self.system = system
         self.optimizer = optimizer
 
-    def optimize(self) -> None:
-        self.optimizer.optimize(self.system)
+    def optimize(self, warm: Optional[WarmStart] = None) -> None:
+        self.optimizer.optimize(self.system, warm=warm)
         self.system.allocate_by_type()

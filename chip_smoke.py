@@ -15,7 +15,11 @@ width, checks the decisions against the PyTorch trip loop and a CPU
 reference, times the kernels and the cycle, then drives limited mode
 (the capacity-aware greedy, with ample and with scarce capacity), the
 staged path and the incremental engine's steady-state cycle at full
-width and holds each against its reference (phase 6). It prints one
+width and holds each against its reference (phase 6), then drives the
+hierarchical engine (super-shards, staggered forced-full) at fleet
+scale, unlimited and in limited mode, holds every cycle against a
+from-scratch flat engine, restarts it from its checkpoint, and times it
+against the flat engine up to 16384 variants (phase 7). It prints one
 JSON line per the kernels and a final status line. Every phase raises
 on failure; the script exits non-zero when CUDA is absent or any check
 fails.
@@ -33,6 +37,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,6 +58,27 @@ LIMITED_POLICY = "PriorityRoundRobin"
 ENGINE_CYCLES = 30
 CHURN_SHARE = 0.02
 CAPACITY_CHANGE_AT, GROW_AT, N_GROW = 15, 22, 16
+
+# phase 7: the hierarchical engine. 7a/7b: HIER_VARIANTS variants (4
+# shards of the default 1024), HIER_CYCLES churn cycles, forced full
+# every HIER_FULL_EVERY cycles; the limited churn turns scarce at cycle
+# HIER_SCARCE_FROM; 7b checkpoints every HIER_CKPT_EVERY cycles and
+# restarts after cycle HIER_RESTART_AFTER. 7c: FLEET_VARIANTS variants
+# (16 shards) for FLEET_CYCLES cycles at the seam's defaults (forced
+# full every 32 cycles, a checkpoint every 8), a persistent flat engine
+# for FLAT_CYCLES cycles and FLAT_REPS from-scratch flat cycles. The
+# limited fleet pins variant i to a slice of GENERATIONS[i % 3].
+HIER_VARIANTS = 4096
+HIER_CYCLES = 12
+HIER_FULL_EVERY = 8
+HIER_SCARCE_FROM = 7
+HIER_CKPT_EVERY = 4
+HIER_RESTART_AFTER = 8
+FLEET_VARIANTS = 16384
+FLEET_CYCLES = 11
+FLAT_CYCLES = 4
+FLAT_REPS = 2
+GENERATIONS = ("v5e", "v5p", "v6e")
 
 # H100 SXM peaks (NVIDIA data sheet; the special-function rate is 16
 # results per clock per SM for compute capability 9.0, at the 1.98 GHz
@@ -640,6 +666,78 @@ def staged_path(spec, fused64):
 CYCLE_PARTS = ("wall", "calculate", "decide", "optimize", "finish", "gc")
 
 
+@contextlib.contextmanager
+def cycle_clock():
+    """For the block's duration, time every decide_batch call
+    (synchronized on both sides) and every run of the cyclic garbage
+    collector (`gc.callbacks`); yields the dict their ms add up in, which
+    timed_cycle zeroes at the start of each cycle."""
+    from workload_variant_autoscaler_tpu_torch.ops import fused
+
+    spent = {"decide": 0.0, "gc": 0.0}
+    gc_started = [0.0]
+    orig_decide = fused.decide_batch
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_started[0] = time.perf_counter()
+        else:
+            spent["gc"] += (time.perf_counter() - gc_started[0]) * 1e3
+
+    def timed_decide(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_decide(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent["decide"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    fused.decide_batch = timed_decide
+    gc.callbacks.append(on_gc)
+    try:
+        yield spent
+    finally:
+        fused.decide_batch = orig_decide
+        gc.callbacks.remove(on_gc)
+
+
+def timed_cycle(spec, eng, spent):
+    """One cycle through `eng` on the card in float32, inside
+    cycle_clock: (solution, stats, whether the greedy ran warm, the
+    CYCLE_PARTS in ms, the B1/B2 launches). The parts are the wall,
+    engine.calculate, decide_batch inside it, optimize(warm),
+    generate_solution + finish_cycle, and the collector's time inside
+    the wall; the launch counts are set to 0 just before the cycle and
+    read just after."""
+    from workload_variant_autoscaler_tpu_torch import (
+        Manager, Optimizer, System)
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    system = System(device="cuda", dtype=torch.float32)
+    opt = system.set_from_spec(spec)
+    torch.cuda.synchronize()
+    bk.reset_launches()
+    spent["decide"] = spent["gc"] = 0.0
+    t0 = time.perf_counter()
+    stats = eng.calculate(system, backend="kernel", optimizer_spec=opt)
+    t1 = time.perf_counter()
+    warm = eng.warm_start()
+    Manager(system, Optimizer(opt)).optimize(warm=warm)
+    t2 = time.perf_counter()
+    solution = system.generate_solution()
+    eng.finish_cycle(system)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    parts = {"wall": (t3 - t0) * 1e3, "calculate": (t1 - t0) * 1e3,
+             "decide": spent["decide"], "optimize": (t2 - t1) * 1e3,
+             "finish": (t3 - t2) * 1e3, "gc": spent["gc"]}
+    return solution, stats, warm is not None, parts, dict(bk.launches)
+
+
+def brief(parts):
+    return ", ".join(f"{k} {parts[k]:.3f}" for k in CYCLE_PARTS)
+
+
 def churn_specs(caps):
     """Phase 6b's ENGINE_CYCLES limited-mode specs: each cycle
     CHURN_SHARE of the variants step their load by 10% (about five 2%
@@ -691,64 +789,16 @@ def engine_churn(caps):
     collector ran inside the wall) and the B1/B2 launches of the
     persistent engine's cycle (the launch counts are set to 0 just before
     it and read just after)."""
-    from workload_variant_autoscaler_tpu_torch import (
-        IncrementalSolveEngine, Manager, Optimizer, System)
-    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
-    from workload_variant_autoscaler_tpu_torch.ops import fused
+    from workload_variant_autoscaler_tpu_torch import IncrementalSolveEngine
 
     specs = churn_specs(caps)
-    spent = {"decide": 0.0, "gc": 0.0}
-    gc_started = [0.0]
-    orig_decide = fused.decide_batch
-
-    def on_gc(phase, _info):
-        if phase == "start":
-            gc_started[0] = time.perf_counter()
-        else:
-            spent["gc"] += (time.perf_counter() - gc_started[0]) * 1e3
-
-    def timed_decide(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig_decide(*args, **kwargs)
-        torch.cuda.synchronize()
-        spent["decide"] += (time.perf_counter() - t0) * 1e3
-        return out
-
-    def run(spec, eng):
-        system = System(device="cuda", dtype=torch.float32)
-        opt = system.set_from_spec(spec)
-        torch.cuda.synchronize()
-        bk.reset_launches()
-        spent["decide"] = spent["gc"] = 0.0
-        t0 = time.perf_counter()
-        stats = eng.calculate(system, backend="kernel", optimizer_spec=opt)
-        t1 = time.perf_counter()
-        warm = eng.warm_start()
-        Manager(system, Optimizer(opt)).optimize(warm=warm)
-        t2 = time.perf_counter()
-        solution = system.generate_solution()
-        eng.finish_cycle(system)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        parts = {"wall": (t3 - t0) * 1e3, "calculate": (t1 - t0) * 1e3,
-                 "decide": spent["decide"], "optimize": (t2 - t1) * 1e3,
-                 "finish": (t3 - t2) * 1e3, "gc": spent["gc"]}
-        return solution, stats, warm is not None, parts, dict(bk.launches)
-
-    def brief(parts):
-        return ", ".join(f"{k} {parts[k]:.3f}" for k in CYCLE_PARTS)
-
     engine = IncrementalSolveEngine()
-    fused.decide_batch = timed_decide
-    gc.callbacks.append(on_gc)
-    try:
-        persistent = [run(spec, engine) for spec, _live, _scarce in specs]
-        replay = [run(spec, IncrementalSolveEngine(full_every=1))
+    with cycle_clock() as spent:
+        persistent = [timed_cycle(spec, engine, spent)
+                      for spec, _live, _scarce in specs]
+        replay = [timed_cycle(spec, IncrementalSolveEngine(full_every=1),
+                              spent)
                   for spec, _live, _scarce in specs]
-    finally:
-        fused.decide_batch = orig_decide
-        gc.callbacks.remove(on_gc)
     records = []
     for c, ((_spec, live, scarce), mine, ref) in enumerate(
             zip(specs, persistent, replay)):
@@ -803,6 +853,395 @@ def engine_summary(records) -> None:
             f"{medians([r['parts'] for r in steady])}")
     log(f"  full cycle (from-scratch engine, all {len(records)} cycles), "
         f"median ms: {medians([r['from_scratch'] for r in records])}")
+
+
+def pinned_fleet(n_variants: int, seed: int):
+    """build_fleet's fleet with variant i pinned (keep_accelerator) to
+    the first slice of generation GENERATIONS[i % 3]: three pool
+    components. Restricting profiles would not split the fleet: the
+    partition unions the chips of every candidate accelerator, and a
+    server that is not pinned has the whole catalog as candidates."""
+    fleet = build_fleet(n_variants, seed)
+    first = {}
+    for acc in fleet.accelerators:
+        first.setdefault(acc.chip, acc.name)
+    fleet.servers[:] = [dataclasses.replace(
+        s, keep_accelerator=True, current_alloc=dataclasses.replace(
+            s.current_alloc, accelerator=first[GENERATIONS[i % 3]]))
+        for i, s in enumerate(fleet.servers)]
+    return fleet
+
+
+def pool_capacities(fleet):
+    """(ample, scarce): AMPLE and SCARCE times the chips the unlimited
+    solution of `fleet` takes in each chip pool."""
+    system, opt = make_system(fleet, "cuda", torch.float32)
+    cycle(system, opt)
+    used = {c: a.count for c, a in system.allocate_by_type().items()}
+    return ({c: int(AMPLE * n) for c, n in used.items()},
+            {c: int(SCARCE * n) for c, n in used.items()})
+
+
+def hier_specs(fleet, cycles: int, seed: int, caps=None):
+    """(cycle, spec) for cycles 1..`cycles` of `fleet`: before each cycle
+    but the first, CHURN_SHARE of the variants step their load by +-10%,
+    as in phase 6b. With caps=(ample, scarce), limited mode under
+    LIMITED_POLICY, scarce from cycle HIER_SCARCE_FROM on; else
+    unlimited. A generator: every call yields the same sequence."""
+    from workload_variant_autoscaler_tpu_torch.models.spec import OptimizerSpec
+
+    rng = np.random.default_rng(seed)
+    loads = [s.current_alloc.load for s in fleet.servers]
+    moved = max(1, round(CHURN_SHARE * len(loads)))
+    for c in range(1, cycles + 1):
+        if c > 1:
+            for i in rng.choice(len(loads), moved, replace=False):
+                loads[i] = dataclasses.replace(
+                    loads[i], arrival_rate=loads[i].arrival_rate
+                    * float(rng.choice([0.9, 1.1])))
+        servers = [dataclasses.replace(s, current_alloc=dataclasses.replace(
+            s.current_alloc, load=load))
+            for s, load in zip(fleet.servers, loads)]
+        if caps is None:
+            yield c, dataclasses.replace(fleet, servers=servers)
+        else:
+            yield c, dataclasses.replace(
+                fleet, servers=servers,
+                capacity=dict(caps[c >= HIER_SCARCE_FROM]),
+                optimizer=OptimizerSpec(unlimited=False,
+                                        saturation_policy=LIMITED_POLICY))
+
+
+def hier_churn(label, fleet, seed, caps=None, restart_path=None,
+               flat=False):
+    """Phase 7a: HIER_CYCLES cycles of hier_specs through one persistent
+    HierarchicalSolveEngine (the defaults of the engine seam, forced full
+    every HIER_FULL_EVERY cycles); then, with `flat`, through a persistent
+    flat engine; then each spec again through a from-scratch flat engine
+    (full_every=1). Every solution must equal the from-scratch one.
+
+    With `restart_path` (phase 7b) the engine checkpoints there every
+    HIER_CKPT_EVERY cycles. After cycle HIER_RESTART_AFTER a second
+    engine is built from the file; it and the first run the unchanged
+    fleet once more (cycle n'), then both run the rest of the churn.
+
+    Returns the runs: (cycle name, cycle, engine name, timed_cycle's
+    result)."""
+    from workload_variant_autoscaler_tpu_torch import (
+        HierarchicalSolveEngine, IncrementalSolveEngine)
+
+    kw = dict(full_every=HIER_FULL_EVERY)
+    if restart_path:
+        kw.update(checkpoint_path=restart_path,
+                  checkpoint_every=HIER_CKPT_EVERY)
+    engines = {"hier": HierarchicalSolveEngine(**kw)}
+    runs = []
+    with cycle_clock() as spent:
+        for c, spec in hier_specs(fleet, HIER_CYCLES, seed, caps):
+            for who, eng in list(engines.items()):
+                runs.append((str(c), c, who, timed_cycle(spec, eng, spent)))
+            if restart_path and c == HIER_RESTART_AFTER:
+                engines["restarted"] = HierarchicalSolveEngine(**kw)
+                for who in ("restarted", "hier"):
+                    runs.append((f"{c}'", c, who,
+                                 timed_cycle(spec, engines[who], spent)))
+        events = {who: dict(e.ckpt_events) for who, e in engines.items()}
+        del engines
+        if flat:
+            gc.collect()
+            eng = IncrementalSolveEngine()
+            runs += [(str(c), c, "flat", timed_cycle(spec, eng, spent))
+                     for c, spec in hier_specs(fleet, HIER_CYCLES, seed,
+                                               caps)]
+            del eng
+        replay = {c: timed_cycle(spec, IncrementalSolveEngine(full_every=1),
+                                 spent)
+                  for c, spec in hier_specs(fleet, HIER_CYCLES, seed, caps)}
+
+    n = len(fleet.servers)
+    for name, c, who, (sol, stats, warm, parts, launches) in runs:
+        same = sol == replay[c][0]
+        log(f"  {label} cycle {name:>3} {who:>9}: {stats.shards} shards, "
+            f"{stats.shards_solved} solved, "
+            f"{'restored' if stats.restored else 'full' if stats.full else 'incremental'}"
+            f" ({stats.modes.get('full', 0)} of {n} variants forced), "
+            f"lanes solved {stats.lanes_solved} skipped "
+            f"{stats.lanes_skipped}, launches {launches}, greedy "
+            f"{'warm' if warm else 'cold'}; ms: {brief(parts)}; from "
+            f"scratch wall {replay[c][3]['wall']:.3f}; equal={same}")
+        if not same:
+            raise AssertionError(f"{label} cycle {name} ({who}): solution "
+                                 f"differs from a from-scratch one")
+        if who == "flat":
+            continue
+        if caps is None and stats.shards < 4:
+            raise AssertionError(f"{label}: {stats.shards} shards")
+        # cycle n' repeats cycle n's fleet: nothing is left to solve
+        if caps is not None and not name.endswith("'") \
+                and stats.shards_solved < 2:
+            raise AssertionError(f"{label}: {stats.shards_solved} shards "
+                                 f"solved")
+        if c > 1 and stats.modes.get("full", 0) >= n:
+            raise AssertionError(f"{label} cycle {name}: every variant "
+                                 f"was forced full on a steady cycle")
+    hier = [r for r in runs if r[2] != "flat"]
+    launched = {form: sum(r[3][4][form] for r in hier)
+                for form in ("mean", "tail")}
+    if launched["mean"] < 1 or launched["tail"] < 1:
+        raise AssertionError(f"{label}: a kernel was not launched: "
+                             f"{launched}")
+    if restart_path:
+        first = next(r[3][1] for r in runs if r[2] == "restarted")
+        log(f"  {label} checkpoint events: {events}; first cycle of the "
+            f"restarted engine: restored={first.restored}, "
+            f"full={first.full}, lanes solved {first.lanes_solved}")
+        if events["restarted"]["restore"] != 1 \
+                or any(e["save_error"] for e in events.values()) \
+                or events["hier"]["save"] < 1 \
+                or not first.restored or first.full \
+                or first.lanes_solved != 0:
+            raise AssertionError(f"{label}: warm restart failed: {events}")
+        by_cycle = {}
+        for name, _c, who, result in hier:
+            by_cycle.setdefault(name, {})[who] = result[0]
+        if any(s["restarted"] != s["hier"]
+               for s in by_cycle.values() if "restarted" in s):
+            raise AssertionError(f"{label}: the restarted engine differs "
+                                 f"from the never-restarted one")
+    return runs
+
+
+def timed_method(obj, name: str) -> list:
+    """Wrap obj.<name> (on the instance) to append each call's ms to the
+    returned list."""
+    spent, orig = [], getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, timed)
+    return spent
+
+
+def timed_saves(engine) -> list:
+    """Time every checkpoint save of `engine` (finish_cycle calls
+    maybe_checkpoint each cycle; it saves every checkpoint_every-th):
+    a list of (whole save ms, of which building the payload ms)."""
+    saves = []
+    built = timed_method(engine, "_checkpoint_payload")
+    orig = engine.maybe_checkpoint
+
+    def timed():
+        before = engine.ckpt_events["save"]
+        t0 = time.perf_counter()
+        orig()
+        if engine.ckpt_events["save"] > before:
+            saves.append(((time.perf_counter() - t0) * 1e3, built[-1]))
+
+    engine.maybe_checkpoint = timed
+    return saves
+
+
+def fleet_scale(workdir):
+    """Phase 7c: FLEET_VARIANTS variants x 8 slices, unlimited, through
+    the engine the seam gives by default (`_solve_engine`, with a
+    checkpoint path): FLEET_CYCLES churn cycles (the first all forced,
+    then steady, a shard forced full on the cycles its stagger phase
+    comes due), a warm restart from the checkpoint of the engine's
+    first save against a cold start on that cycle's fleet, a persistent
+    flat engine over the first FLAT_CYCLES cycles and FLAT_REPS
+    from-scratch flat cycles on the last fleet (each must decide as the
+    hierarchical engine did). Returns the hierarchical runs, the restart
+    records (how -> (ms to build the engine, ms to its first decision,
+    timed_cycle's result, checkpoint events, ms of lane digests in the
+    cycle)), the flat runs (cycle,
+    timed_cycle's result), the saves and the checkpoint's size."""
+    from workload_variant_autoscaler_tpu_torch import IncrementalSolveEngine
+    from workload_variant_autoscaler_tpu_torch.controller import (
+        SolveEngineSelector)
+
+    fleet = build_fleet(FLEET_VARIANTS, SEED + 5)
+    path = os.path.join(workdir, "fleet.ckpt")
+    knobs = {"WVA_ARENA_CHECKPOINT": path}
+    engine = SolveEngineSelector()._solve_engine(knobs)
+    saves = timed_saves(engine)
+    runs, kept = [], {}
+    with cycle_clock() as spent:
+        for c, spec in hier_specs(fleet, FLEET_CYCLES, SEED + 6):
+            runs.append((c, timed_cycle(spec, engine, spent)))
+            if c in (engine.checkpoint_every, FLEET_CYCLES):
+                kept[c] = spec
+            r = runs[-1][1]
+            log(f"  fleet cycle {c:2d}: {r[1].shards} shards, "
+                f"{r[1].shards_solved} solved, "
+                f"{'full' if r[1].full else 'steady'} "
+                f"({r[1].modes.get('full', 0)} variants forced), lanes "
+                f"solved {r[1].lanes_solved} skipped {r[1].lanes_skipped}, "
+                f"launches {r[4]}; ms: {brief(r[3])}")
+        events = dict(engine.ckpt_events)
+        size = os.path.getsize(path)
+        del engine
+        gc.collect()
+        restart = {}
+        at = min(kept)
+        for how, cm in (("warm", knobs), ("cold", {})):
+            t0 = time.perf_counter()
+            eng = SolveEngineSelector()._solve_engine(cm)
+            built = (time.perf_counter() - t0) * 1e3
+            digests = timed_method(eng, "_lane_digest")
+            out = timed_cycle(kept[at], eng, spent)
+            restart[how] = (built, (time.perf_counter() - t0) * 1e3, out,
+                            dict(eng.ckpt_events), sum(digests))
+            del eng, out
+            gc.collect()
+        eng = IncrementalSolveEngine()
+        flat = [(c, timed_cycle(spec, eng, spent))
+                for c, spec in hier_specs(fleet, FLAT_CYCLES, SEED + 6)]
+        del eng
+        flat += [(FLEET_CYCLES, timed_cycle(
+            kept[FLEET_CYCLES], IncrementalSolveEngine(full_every=1), spent))
+            for _ in range(FLAT_REPS)]
+    want = {c: r[0] for c, r in runs}
+    warm, cold = restart["warm"][2], restart["cold"][2]
+    log(f"  restart on cycle {at}'s fleet: warm (checkpoint events "
+        f"{restart['warm'][3]}) restored={warm[1].restored} full="
+        f"{warm[1].full} lanes solved {warm[1].lanes_solved}; cold "
+        f"full={cold[1].full} lanes solved {cold[1].lanes_solved}")
+    for c, r in flat:
+        log(f"  fleet cycle {c:2d}, flat: {'full' if r[1].full else 'steady'}"
+            f", lanes solved {r[1].lanes_solved}; ms: {brief(r[3])}; "
+            f"equal={r[0] == want[c]}")
+    if not (warm[1].restored and not warm[1].full
+            and warm[1].lanes_solved == 0 and cold[1].full
+            and warm[0] == want[at] and cold[0] == want[at]
+            and all(r[0] == want[c] for c, r in flat)
+            and events["save"] >= 1 and events["save_error"] == 0
+            and restart["warm"][3]["restore"] == 1):
+        raise AssertionError(f"fleet scale: restart or flat check failed "
+                             f"(events {events}, {restart['warm'][3]})")
+    return runs, restart, flat, saves, size
+
+
+def hier_summary(card, unlimited_runs, limited_runs, fleet) -> None:
+    """Phase 7's summary: launches per hierarchical cycle, the steady
+    cycles at HIER_VARIANTS and FLEET_VARIANTS variants, hierarchical
+    against flat (the crossover on this card), and phase 7c's times, with
+    the card's name and power limit beside them. A steady cycle is any
+    cycle after the first; `quiet` ones have no shard forced full."""
+    runs, restart, flat, saves, size = fleet
+
+    def parts(results):
+        return brief({k: statistics.median(r[3][k] for r in results)
+                      for k in CYCLE_PARTS})
+
+    def forced(r):
+        return r[1].modes.get("full", 0)
+
+    for label, rs in (("unlimited", unlimited_runs),
+                      ("limited", limited_runs)):
+        per = [(r[3][4]["mean"], r[3][4]["tail"]) for r in rs
+               if r[2] != "flat"]
+        log(f"  launches (B1, B2) per hierarchical cycle, {label}, "
+            f"{HIER_VARIANTS} variants: {per}")
+    per = [(r[4]["mean"], r[4]["tail"]) for _c, r in runs]
+    log(f"  launches (B1, B2) per hierarchical cycle, {FLEET_VARIANTS} "
+        f"variants: {per}")
+
+    for n, hier, flat_steady in (
+            (HIER_VARIANTS,
+             [r[3] for r in unlimited_runs if r[1] > 1 and r[2] == "hier"],
+             [r[3] for r in unlimited_runs if r[1] > 1 and r[2] == "flat"]),
+            (FLEET_VARIANTS, [r for c, r in runs if c > 1],
+             [r for c, r in flat if c > 1 and not r[1].full])):
+        quiet = [r for r in hier if not forced(r)]
+        shard = [r for r in hier if forced(r)]
+        log(f"  {card}: steady cycle at {n} variants, unlimited, median ms:")
+        log(f"    hierarchical, no shard forced ({len(quiet)} cycles, lanes "
+            f"solved {statistics.median(r[1].lanes_solved for r in quiet)})"
+            f": {parts(quiet)}")
+        if shard:
+            log(f"    hierarchical, a shard forced full ({len(shard)} cycles,"
+                f" {statistics.median(forced(r) for r in shard)} variants "
+                f"forced): {parts(shard)}; worst wall "
+                f"{max(r[3]['wall'] for r in shard):.3f}")
+        log(f"    flat ({len(flat_steady)} cycles, lanes solved "
+            f"{statistics.median(r[1].lanes_solved for r in flat_steady)}): "
+            f"{parts(flat_steady)}")
+        if not quiet or (n == FLEET_VARIANTS and not shard):
+            raise AssertionError(f"{n} variants: steady cycles with and "
+                                 f"without a shard forced full are needed")
+    lim = [r[3] for r in limited_runs if r[1] > 1 and r[2] != "flat"
+           and not r[0].endswith("'")]
+    log(f"  {card}: steady cycle at {HIER_VARIANTS} variants, limited "
+        f"({LIMITED_POLICY}), hierarchical, median ms ({len(lim)} cycles): "
+        f"{parts(lim)}")
+
+    full = [r for c, r in flat if r[1].full]
+    log(f"  {card}: {FLEET_VARIANTS} variants ({FLEET_VARIANTS * 8} lanes, "
+        f"{runs[0][1][1].shards} shards), unlimited, ms:")
+    log(f"    hierarchical first cycle (all shards forced): "
+        f"{brief(runs[0][1][3])}")
+    log(f"    flat forced-full cycle (a new engine's first cycle, median of "
+        f"{len(full)}): {parts(full)}")
+    for how in ("warm", "cold"):
+        built, total, out, _events, digests = restart[how]
+        log(f"    restart to first decision, {how}: {total:.3f} (engine "
+            f"built through the seam {built:.3f}, then one cycle: lanes "
+            f"solved {out[1].lanes_solved}, lane digests {digests:.3f}, "
+            f"{brief(out[3])})")
+    log(f"    checkpoint saves (whole save, of which the payload): "
+        f"{[(round(a, 3), round(b, 3)) for a, b in saves]} ms; file "
+        f"{size} bytes")
+    gcs = [r[3]["gc"] for _c, r in runs]
+    log(f"    gc per hierarchical cycle: median {statistics.median(gcs):.3f}"
+        f", max {max(gcs):.3f}")
+
+
+def hier_phase():
+    """Phase 7: 7a's two churns (7b's restart inside the limited one),
+    then 7c; returns hier_summary's arguments after the card line."""
+    from workload_variant_autoscaler_tpu_torch import HierarchicalSolveEngine
+    from workload_variant_autoscaler_tpu_torch.controller import (
+        SolveEngineSelector)
+    from workload_variant_autoscaler_tpu_torch.solver import hierarchy
+
+    default = SolveEngineSelector()._solve_engine({})
+    made = HierarchicalSolveEngine(full_every=HIER_FULL_EVERY)
+    knobs = ("epsilon", "shard_target", "min_variants", "checkpoint_path")
+    if type(default) is not HierarchicalSolveEngine \
+            or (default.min_variants, default.shard_target) \
+            != (hierarchy.DEFAULT_MIN_VARIANTS, hierarchy.DEFAULT_SHARD_TARGET) \
+            or any(getattr(made, k) != getattr(default, k) for k in knobs):
+        raise AssertionError("the engine seam's default is not the "
+                             "hierarchical engine at its defaults")
+    del default, made
+    log(f"  7a(i): {HIER_VARIANTS} variants x 8 slices, unlimited, the "
+        f"seam's default engine with full_every={HIER_FULL_EVERY}, then a "
+        f"persistent flat engine, each held against a from-scratch one")
+    unlimited = hier_churn("7a(i)", build_fleet(HIER_VARIANTS, SEED + 3),
+                           SEED + 4, flat=True)
+    gc.collect()
+    limited_fleet = pinned_fleet(HIER_VARIANTS, SEED + 3)
+    caps = pool_capacities(limited_fleet)
+    log(f"  7a(ii)/7b: {HIER_VARIANTS} variants pinned to one slice each "
+        f"({'/'.join(GENERATIONS)} for i mod 3), {LIMITED_POLICY}, ample "
+        f"{caps[0]}, scarce {caps[1]} from cycle {HIER_SCARCE_FROM}; "
+        f"checkpoint every {HIER_CKPT_EVERY} cycles, restart after cycle "
+        f"{HIER_RESTART_AFTER}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
+        limited = hier_churn("7a(ii)", limited_fleet, SEED + 4, caps,
+                             restart_path=os.path.join(d, "arena.ckpt"))
+        del limited_fleet
+        gc.collect()
+        log(f"  7c: {FLEET_VARIANTS} variants x 8 slices, unlimited, the "
+            f"seam's default engine with a checkpoint")
+        fleet = fleet_scale(d)
+    return unlimited, limited, fleet
 
 
 def main() -> int:
@@ -985,6 +1424,14 @@ def main() -> int:
         f"{greedy_times['ample']['off']:.3f}, scarce after the sweep's "
         f"fall-back {greedy_times['scarce']['on']:.3f}, scarce sequential "
         f"{greedy_times['scarce']['off']:.3f}")
+
+    log("phase 7: the hierarchical engine at fleet scale (float32, "
+        "backend='kernel')")
+    del spec, caps
+    gc.collect()
+    t7 = time.perf_counter()
+    hier_summary(card, *hier_phase())
+    log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -437,3 +437,87 @@ def test_engine_churn_on_card_equals_from_scratch(card, unlimited, policy):
         assert got == want, c
         skipped += stats.lanes_skipped > 0
     assert skipped > 15
+
+
+def test_hierarchical_engine_on_card_equals_from_scratch(card, tmp_path):
+    """A limited three-component fleet through the hierarchical engine
+    (shards of 4, forced full every 3 cycles) on the card, float32: equal
+    to a from-scratch flat engine every cycle. Each variant is pinned
+    (keep_accelerator) to the one slice its model is profiled on, v5e-4,
+    v5p-4 or v6e-1: the partition unions the chips of every candidate
+    accelerator, which is the whole catalog for a server that is not
+    pinned, so only pinned servers split into per-generation components.
+    Then one checkpoint round-trip: the restarted engine restores, its
+    first cycle on the unchanged fleet is `restored` and solves no lane,
+    and it still decides as the from-scratch engine."""
+    import dataclasses
+
+    from workload_variant_autoscaler_tpu_torch import (
+        HierarchicalSolveEngine, IncrementalSolveEngine, Manager, Optimizer,
+        System)
+    from workload_variant_autoscaler_tpu_torch.models import (
+        ModelSliceProfile, make_slice)
+
+    def cycle(spec, engine):
+        system = System(device=card, dtype=torch.float32)
+        opt = system.set_from_spec(spec)
+        stats = engine.calculate(system, backend="kernel",
+                                 optimizer_spec=opt)
+        Manager(system, Optimizer(opt)).optimize(warm=engine.warm_start())
+        solution = system.generate_solution()
+        engine.finish_cycle(system)
+        return solution, stats
+
+    # model m<g> runs on one slice of generation g
+    pins = {"m0": "v5e-4", "m1": "v5p-4", "m2": "v6e-1"}
+    base = port_fleet([], {"v5e": 60, "v5p": 24, "v6e": 12}, False,
+                      "PriorityRoundRobin")
+    coeffs = {p.accelerator: p for p in base.profiles}
+    coeffs["v6e-1"] = dataclasses.replace(coeffs["v5e-1"], alpha=5.0)
+    profiles = [ModelSliceProfile(m, acc, c.alpha, c.beta, c.gamma, c.delta,
+                                  max_batch_size=c.max_batch_size,
+                                  at_tokens=c.at_tokens)
+                for m, acc in pins.items() for c in [coeffs[acc]]]
+    classes = [dataclasses.replace(svc, model_targets=tuple(
+        dataclasses.replace(svc.model_targets[0], model=m) for m in pins))
+        for svc in base.service_classes]
+
+    def spec(loads):
+        servers = []
+        for i, rpm in enumerate(loads):
+            server = port_server(f"v{i}", rpm,
+                                 "Premium" if i % 2 else "Freemium")
+            model = f"m{i % 3}"
+            servers.append(dataclasses.replace(
+                server, model=model, keep_accelerator=True,
+                current_alloc=dataclasses.replace(
+                    server.current_alloc, accelerator=pins[model])))
+        return dataclasses.replace(
+            base, accelerators=base.accelerators + [make_slice("v6e", 1,
+                                                               "1x1")],
+            profiles=profiles, service_classes=classes, servers=servers)
+
+    path = str(tmp_path / "arena.ckpt")
+    kw = dict(epsilon=0.05, full_every=3, shard_target=4, min_variants=1)
+    engine = HierarchicalSolveEngine(checkpoint_path=path,
+                                     checkpoint_every=2, **kw)
+    loads = [300.0 + 40.0 * i for i in range(12)]
+    for c in range(6):
+        loads[c % 12] *= 1.3
+        loads[(5 * c + 3) % 12] *= 0.7
+        got, stats = cycle(spec(loads), engine)
+        want, _ = cycle(spec(loads), IncrementalSolveEngine(epsilon=0.05,
+                                                            full_every=1))
+        assert got == want, c
+        assert stats.shards == 3 and stats.shards_solved >= 1
+    pools = sorted(map(sorted, engine.last_partition.pool_sets.values()))
+    assert pools == [["v5e"], ["v5p"], ["v6e"]]
+    assert engine.last_capacity_slices is not None
+    assert engine.ckpt_events["save"] == 3
+    assert engine.ckpt_events["save_error"] == 0
+
+    restarted = HierarchicalSolveEngine(checkpoint_path=path, **kw)
+    assert restarted.ckpt_events["restore"] == 1
+    got, stats = cycle(spec(loads), restarted)
+    assert stats.restored and not stats.full and stats.lanes_solved == 0
+    assert got == want

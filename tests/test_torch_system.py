@@ -197,6 +197,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import workload_variant_autoscaler_tpu_torch.ops.arena\n"
         "import workload_variant_autoscaler_tpu_torch.solver.greedy\n"
         "import workload_variant_autoscaler_tpu_torch.solver.incremental\n"
+        "import workload_variant_autoscaler_tpu_torch.solver.hierarchy\n"
+        "import workload_variant_autoscaler_tpu_torch.stream.checkpoint\n"
+        "import workload_variant_autoscaler_tpu_torch.controller.reconciler\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'workload_variant_autoscaler_tpu'\n"

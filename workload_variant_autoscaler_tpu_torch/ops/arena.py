@@ -23,6 +23,7 @@ the CPU in float64).
 
 from __future__ import annotations
 
+import base64
 import math
 
 import numpy as np
@@ -86,6 +87,45 @@ class CandidateArena:
             self._slabs[b] = slab
             self.slab_allocs += 1
         return slab
+
+    # -- warm cold-start snapshot (solver/hierarchy.py checkpoint) --------
+
+    def snapshot_slabs(self) -> dict:
+        """JSON-serializable image of the resident slabs: bucket ->
+        column -> {numpy dtype, base64 raw bytes}. An exact byte
+        round-trip: a restored arena holds precisely the slabs the
+        checkpointed process last packed."""
+        return {
+            str(b): {name: {"dtype": buf.dtype.str,
+                            "data": base64.b64encode(
+                                buf.tobytes()).decode("ascii")}
+                     for name, buf in slab.items()}
+            for b, slab in self._slabs.items()
+        }
+
+    def restore_slabs(self, snap: dict) -> None:
+        """Rebuild the slabs from snapshot_slabs() output. Raises
+        ValueError on any malformed entry (unknown or missing column,
+        wrong length); nothing is committed until every slab has
+        validated, so a failed restore leaves the arena as it was."""
+        known = dict(_COLUMNS)
+        known.update(_EPI_COLUMNS)
+        restored: dict[int, dict[str, np.ndarray]] = {}
+        for b_key, cols in snap.items():
+            b = int(b_key)
+            if set(cols) != set(known):
+                raise ValueError(f"arena slab {b}: column set mismatch")
+            slab = {}
+            for name, rec in cols.items():
+                arr = np.frombuffer(
+                    base64.b64decode(rec["data"]),
+                    dtype=np.dtype(rec["dtype"])).copy()
+                if arr.shape != (b,):
+                    raise ValueError(
+                        f"arena slab {b}.{name}: length mismatch")
+                slab[name] = arr
+            restored[b] = slab
+        self._slabs.update(restored)
 
     def pack(self, rows: dict[str, list], quantum: int = LANE_BUCKET, *,
              device: torch.device, dtype: torch.dtype):

@@ -100,6 +100,11 @@ class SolveStats:
     lanes_solved: int = 0
     lanes_skipped: int = 0
     modes: dict = field(default_factory=dict)  # mode -> variant count
+    # the hierarchical engine's telemetry (solver/hierarchy.py); zeros
+    # on the flat engine, so consumers need no isinstance
+    shards: int = 0         # super-shards in this cycle's partition
+    shards_solved: int = 0  # shards that dispatched any lanes
+    restored: bool = False  # first cycle after a warm checkpoint restore
 
 
 class IncrementalSolveEngine:

@@ -19,10 +19,15 @@ width and holds each against its reference (phase 6), then drives the
 hierarchical engine (super-shards, staggered forced-full) at fleet
 scale, unlimited and in limited mode, holds every cycle against a
 from-scratch flat engine, restarts it from its checkpoint, and times it
-against the flat engine up to 16384 variants (phase 7). It prints one
-JSON line per the kernels and a final status line. Every phase raises
-on failure; the script exits non-zero when CUDA is absent or any check
-fails.
+against the flat engine up to 16384 variants (phase 7), then drives the
+controller's reconcile cycle (`Reconciler.reconcile()`: collect from a
+FakePromAPI, analyze through the engines and the kernels, optimize,
+publish to an InMemoryKube) at 512 VAs x 8 slices, in limited mode, and
+at 4096 VAs, each cycle held against a full-solve reconciler and 8a's
+first cycles against the CPU in float64 (phase 8). It prints one JSON
+line per phase-8 fleet, one for the kernels and a final status line.
+Every phase raises on failure; the script exits non-zero when CUDA is
+absent or any check fails.
 """
 
 from __future__ import annotations
@@ -79,6 +84,35 @@ FLEET_CYCLES = 11
 FLAT_CYCLES = 4
 FLAT_REPS = 2
 GENERATIONS = ("v5e", "v5p", "v6e")
+
+# phase 8: the reconcile cycle (Reconciler.reconcile) on the card, on a
+# cluster built by tests/reconcile_cluster.py (InMemoryKube, FakePromAPI).
+# 8a: RECON_VARIANTS VAs, a model each, in RECON_NAMESPACES namespaces,
+# 8 slice shapes each (4096 candidate lanes), half in a mean class, half
+# held at p95 TTFT; warm-up, a first cycle and RECON_STEADY steady
+# cycles, RECON_CHURN of the models' loads changing before each, one
+# model's query raising in cycle RECON_FAIL_AT; then RECON_F64_CYCLES
+# float64 cycles on the card against the CPU. 8b: the same fleet limited
+# to RECON_SCARCE of the chips its unlimited solution takes in each pool,
+# for 1 + LIMITED_STEADY cycles. 8c: FLEET_RECON_VARIANTS VAs x 2 shapes
+# (FLEET_RECON_MODELS models) for FLEET_RECON_CYCLES cycles. Every cycle
+# is held against a second reconciler with WVA_INCREMENTAL_SOLVE=off (a
+# full solve every cycle). Both run at WVA_SOLVE_EPSILON=0: the engine
+# must then decide exactly as the full solve (at the default 0.02 it
+# sizes on bucketed loads, by design).
+RECON_VARIANTS = 512
+RECON_NAMESPACES = 8
+RECON_STEADY = 10
+RECON_CHURN = 0.02
+RECON_FAIL_AT = 5
+RECON_F64_CYCLES = 3
+RECON_SCARCE = 0.6
+LIMITED_STEADY = 5
+FLEET_RECON_VARIANTS = 4096
+FLEET_RECON_MODELS = 512
+FLEET_RECON_CYCLES = 3
+RECON_OPERATOR = (("WVA_SOLVE_EPSILON", "0"),)
+STAGES = ("config", "prepare", "analyze", "optimize", "publish")
 
 # H100 SXM peaks (NVIDIA data sheet; the special-function rate is 16
 # results per clock per SM for compute capability 9.0, at the 1.98 GHz
@@ -1244,6 +1278,305 @@ def hier_phase():
     return unlimited, limited, fleet
 
 
+def reconcile_cluster():
+    """tests/reconcile_cluster.py: the cluster maker of the port's
+    parity tests (it imports only the package it is asked for)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import reconcile_cluster as rc
+
+    return rc
+
+
+@contextlib.contextmanager
+def batch_spy():
+    """For the block's duration, record the solution entry each VA is
+    published from (accelerator, replicas, batch; translate.
+    create_optimized_alloc reads it); yields the dict, which recon_cycle
+    clears before each cycle."""
+    from workload_variant_autoscaler_tpu_torch.controller import translate
+
+    seen = {}
+    orig = translate.create_optimized_alloc
+
+    def spy(name, namespace, solution, now=None):
+        d = solution.allocations[f"{name}:{namespace}"]
+        seen[(name, namespace)] = (d.accelerator, d.num_replicas,
+                                   d.max_batch)
+        return orig(name, namespace, solution, now=now)
+
+    translate.create_optimized_alloc = spy
+    try:
+        yield seen
+    finally:
+        translate.create_optimized_alloc = orig
+
+
+def recon_cycle(b, spy):
+    """One Reconciler.reconcile() of build `b`: (result, wall ms, the
+    reconciler's own stage marks in ms, the B1/B2 launches, the solution
+    entries published). The launch counts are set to 0 just before the
+    cycle and read just after."""
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    spy.clear()
+    torch.cuda.synchronize()
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    result = b.rec.reconcile()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {"B1": bk.launches["mean"], "B2": bk.launches["tail"]}
+    stages = {s: b.emitter.value("inferno_reconcile_stage_duration_msec",
+                                 stage=s) for s in STAGES}
+    return result, wall, stages, launches, dict(spy)
+
+
+def recon_decisions(rc, b, c, solved) -> dict:
+    """Per VA: the published accelerator and replicas, the solution
+    entry it was published from this cycle (with its batch), its
+    conditions (type, status, reason), and the value of
+    inferno_desired_replicas."""
+    desired = {}
+    for (_series, labels), value in rc.samples(
+            b.emitter, ("inferno_desired_replicas",)).items():
+        lab = dict(labels)
+        desired[(lab["variant_name"], lab["namespace"],
+                 lab["accelerator_type"])] = value
+    return {(name, ns): (acc, reps, solved.get((name, ns)), conds,
+                         desired.get((name, ns, acc)))
+            for (name, ns), (acc, reps, _mb, conds)
+            in rc.published(b, c).items()}
+
+
+def hold_equal(label, rc, c, pair, outs) -> None:
+    """Raise unless the two reconcilers of `pair` published the same
+    decisions and returned the same ReconcileResult."""
+    (res_a, *_r, bat_a), (res_b, *_s, bat_b) = outs
+    da = recon_decisions(rc, pair[0], c, bat_a)
+    db = recon_decisions(rc, pair[1], c, bat_b)
+    diff = sorted(k for k in da.keys() | db.keys() if da.get(k) != db.get(k))
+    if diff:
+        k = diff[0]
+        raise AssertionError(f"{label}: {len(diff)} VAs differ, e.g. {k}: "
+                             f"{da.get(k)} != {db.get(k)}")
+    for field in ("processed", "skipped", "degraded", "error"):
+        if getattr(res_a, field) != getattr(res_b, field):
+            raise AssertionError(f"{label}: ReconcileResult.{field} differs")
+
+
+def warm(rc, b, c) -> tuple[float, list]:
+    """translate.warmup_plan of the build's VAs and ConfigMaps, and one
+    fused.warmup per entry on the card: (seconds, plan)."""
+    from workload_variant_autoscaler_tpu_torch.controller import translate
+    from workload_variant_autoscaler_tpu_torch.ops.fused import warmup
+
+    ctl = b.mods["ctl"]
+    t0 = time.perf_counter()
+    plan = translate.warmup_plan(
+        b.kube.list_variant_autoscalings(),
+        service_class_cm=b.kube.get_configmap(
+            ctl.SERVICE_CLASS_CM_NAME, ctl.CONFIG_MAP_NAMESPACE).data,
+        operator_cm=b.kube.get_configmap(
+            ctl.CONFIG_MAP_NAME, ctl.CONFIG_MAP_NAMESPACE).data)
+    for lanes, max_batch, pct in plan:
+        warmup(max_batch, lanes, pct, device="cuda")
+    return time.perf_counter() - t0, plan
+
+
+def recon_pair(rc, c, clock, load, dtype=torch.float32, devices=None):
+    """The cluster twice: the reconciler under test on the card, and its
+    reference (a full solve every cycle on the card, or, with `devices`,
+    the same reconciler on another device)."""
+    first, second = devices or ("cuda", "cuda")
+    ref_c = c if devices else dataclasses.replace(
+        c, operator=c.operator + (("WVA_INCREMENTAL_SOLVE", "off"),))
+    return (rc.build(rc.PORT, c, clock, load, device=first, dtype=dtype),
+            rc.build(rc.PORT, ref_c, clock, load, device=second,
+                     dtype=dtype))
+
+
+def drive_pair(label, rc, c, pair, clock, load, cycles, seed, spy,
+               fail_at=None, log_cycles=True):
+    """`cycles` cycles of both reconcilers, 60 s apart, RECON_CHURN of
+    the loads changing between cycles; every cycle held equal. Returns
+    the per-cycle records of the first reconciler (wall, stages,
+    launches, result, solution entries published) and the second's
+    walls."""
+    rng = np.random.default_rng(seed)
+    rows, ref_walls = [], []
+    for cycle in range(1, cycles + 1):
+        failing = (sorted(load)[3],) if cycle == fail_at else ()
+        for b in pair:
+            rc.set_loads(b, load, failing)
+        outs = [recon_cycle(b, spy) for b in pair]
+        hold_equal(f"{label} cycle {cycle}", rc, c, pair, outs)
+        res, wall, stages, launches, _bat = outs[0]
+        if failing:
+            model, ns = failing[0]
+            stale = {f"{name}:{vns}": "stale-cache"
+                     for i in range(c.variants)
+                     for name, vns in [rc.va_key(i, c)]
+                     if (rc.model_of(i, c), vns) == (model, ns)}
+            if res.degraded != stale:
+                raise AssertionError(f"{label} cycle {cycle}: the failing "
+                                     f"model's VAs read {res.degraded}, "
+                                     f"not the stale-cache tier")
+        rows.append((wall, stages, launches, res, outs[0][4]))
+        ref_walls.append(outs[1][1])
+        if log_cycles:
+            log(f"    {label} cycle {cycle}: wall {wall:.3f} ms (reference "
+                f"{outs[1][1]:.3f}), stages "
+                + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                + f"; launches {launches}; processed {len(res.processed)}"
+                f", degraded {len(res.degraded)}; equal=True")
+        clock.advance(60.0)
+        rc.churn(load, RECON_CHURN, rng)
+    return rows, ref_walls
+
+
+def recon_summary(label, card, c, rows, ref_walls, **extra) -> None:
+    """One JSON line for a sub-phase: the medians of the steady cycles'
+    wall and stages (the first cycle's beside them), B1/B2 launches per
+    cycle, and what `extra` adds."""
+    steady = rows[1:] or rows
+    out = {
+        "phase": label, "card": card, "variants": c.variants,
+        "lanes": c.variants * c.profiles, "cycles": len(rows),
+        "first_cycle_ms": rows[0][0],
+        "first_cycle_stage_ms": rows[0][1],
+        "cycle_ms_median": statistics.median(r[0] for r in steady),
+        "stage_ms_median": {s: statistics.median(r[1][s] for r in steady)
+                            for s in STAGES},
+        "reference_cycle_ms_median": statistics.median(ref_walls[1:]
+                                                       or ref_walls),
+        "b1_launches_per_cycle": [r[2]["B1"] for r in rows],
+        "b2_launches_per_cycle": [r[2]["B2"] for r in rows],
+        "equal": True,
+    }
+    out.update(extra)
+    log(json.dumps(out))
+
+
+def chips_taken(rc, solved: dict) -> dict:
+    """Chips per generation a cycle's solution entries take."""
+    chips = {name: (gen, n) for name, gen, n, _cost, _s in rc.SHAPES}
+    need: dict = {}
+    for acc, reps, _mb in solved.values():
+        gen, n = chips[acc]
+        need[gen] = need.get(gen, 0) + reps * n
+    return need
+
+
+def reconcile_phase(card):
+    """Phase 8: 8a, its float64 card-vs-CPU check, 8b and 8c, each
+    printing its summary line; returns the B1/B2 launches of 8a's
+    cycles."""
+    import logging
+
+    rc = reconcile_cluster()
+    # the reconcilers log a line per variant and cycle at INFO, and the
+    # drift watchdog one per variant and cycle at WARNING (this fleet's
+    # scraped latencies are drawn, not served, so its profiles drift)
+    for name in list(logging.root.manager.loggerDict):
+        if name.startswith("wva"):
+            logging.getLogger(name).setLevel(logging.ERROR)
+    os.environ["LOG_LEVEL"] = "error"
+    with batch_spy() as spy:
+        c = rc.Cluster(variants=RECON_VARIANTS, namespaces=RECON_NAMESPACES,
+                       models=RECON_VARIANTS, profiles=8,
+                       percentile=TAIL_PCT, operator=RECON_OPERATOR,
+                       seed=SEED + 5)
+        clock = rc.Clock()
+        load = rc.loads(c)
+        pair = recon_pair(rc, c, clock, load)
+        warm_s, plan = warm(rc, pair[0], c)
+        log(f"  8a: {c.variants} VAs x 8 slices in {c.namespaces} "
+            f"namespaces, float32, warm-up {warm_s:.3f} s over {plan}")
+        rows, ref_walls = drive_pair("8a", rc, c, pair, clock, load,
+                                     1 + RECON_STEADY, SEED + 6, spy,
+                                     fail_at=RECON_FAIL_AT)
+        if len(rows[0][3].processed) != c.variants:
+            raise AssertionError("8a: the first cycle did not process "
+                                 "every VA")
+        launches = [r[2] for r in rows]
+        if sum(x["B1"] for x in launches) < 1 \
+                or sum(x["B2"] for x in launches) < 1:
+            raise AssertionError(f"8a: a kernel was not launched from "
+                                 f"Reconciler.reconcile(): {launches}")
+        need = chips_taken(rc, rows[-1][4])
+        del pair
+        gc.collect()
+
+        # (ii) float64, the card against the CPU (the kernels' plain
+        # versions), on the same fleet
+        clock64 = rc.Clock()
+        load64 = rc.loads(c)
+        pair64 = recon_pair(rc, c, clock64, load64, torch.float64,
+                            devices=("cuda", "cpu"))
+        rows64, cpu_walls = drive_pair("8a float64 card vs cpu", rc, c,
+                                       pair64, clock64, load64,
+                                       RECON_F64_CYCLES, SEED + 7, spy)
+        del pair64
+        gc.collect()
+        recon_summary("8a", card, c, rows, ref_walls, warmup_s=warm_s,
+                      warmup_plan=plan, f64_card_vs_cpu_cycles=len(rows64),
+                      f64_card_cycle_ms=[r[0] for r in rows64],
+                      f64_cpu_cycle_ms=cpu_walls)
+
+        # 8b: limited mode, scarce pools
+        nodes = tuple((gen, int(RECON_SCARCE * n))
+                      for gen, n in sorted(need.items()))
+        cb = dataclasses.replace(c, nodes=nodes)
+        clock = rc.Clock()
+        load = rc.loads(cb)
+        pair = recon_pair(rc, cb, clock, load)
+        log(f"  8b: the 8a fleet, limited mode, pools {dict(nodes)} chips "
+            f"({RECON_SCARCE} of the unlimited solution's {need})")
+        rows_b, ref_b = drive_pair("8b", rc, cb, pair, clock, load,
+                                   1 + LIMITED_STEADY, SEED + 8, spy)
+        taken = [chips_taken(rc, r[4]) for r in rows_b]
+        unplaced = [cb.variants - len(r[4]) for r in rows_b]
+        if any(t.get(gen, 0) > n for t in taken for gen, n in nodes):
+            raise AssertionError(f"8b: an allocation {taken} exceeds the "
+                                 f"pools {nodes}")
+        if not any(unplaced):
+            raise AssertionError("8b: every VA was placed; the pools are "
+                                 "not scarce")
+        del pair
+        gc.collect()
+        recon_summary("8b", card, cb, rows_b, ref_b, pools=dict(nodes),
+                      chips_taken=taken[-1], vas_without_allocation=unplaced)
+
+        # 8c: fleet scale, the seam's default engine
+        cc = rc.Cluster(variants=FLEET_RECON_VARIANTS,
+                        namespaces=RECON_NAMESPACES,
+                        models=FLEET_RECON_MODELS, profiles=2,
+                        percentile=TAIL_PCT, operator=RECON_OPERATOR,
+                        seed=SEED + 9)
+        clock = rc.Clock()
+        load = rc.loads(cc)
+        pair = recon_pair(rc, cc, clock, load)
+        warm_c, plan_c = warm(rc, pair[0], cc)
+        log(f"  8c: {cc.variants} VAs x 2 slices, warm-up {warm_c:.3f} s "
+            f"over {plan_c}")
+        rows_c, ref_c = drive_pair("8c", rc, cc, pair, clock, load,
+                                   FLEET_RECON_CYCLES, SEED + 10, spy)
+        engine = pair[0].rec._solve_engine_obj
+        if type(engine).__name__ != "HierarchicalSolveEngine" \
+                or engine.last_partition is None \
+                or engine.last_partition.n_shards < 2:
+            raise AssertionError(f"8c: the default engine was "
+                                 f"{type(engine).__name__}, not the "
+                                 f"hierarchical engine over shards")
+        recon_summary("8c", card, cc, rows_c, ref_c, warmup_s=warm_c,
+                      warmup_plan=plan_c, engine=type(engine).__name__,
+                      shards=engine.last_partition.n_shards)
+        del pair
+        gc.collect()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1432,6 +1765,16 @@ def main() -> int:
     t7 = time.perf_counter()
     hier_summary(card, *hier_phase())
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
+
+    log("phase 8: the reconcile cycle (Reconciler.reconcile) on the card")
+    gc.collect()
+    t8 = time.perf_counter()
+    recon_launches = reconcile_phase(card)
+    per_cycle = {"B1": [x["B1"] for x in recon_launches],
+                 "B2": [x["B2"] for x in recon_launches]}
+    for row in rows:
+        row["launches_per_reconcile_cycle"] = per_cycle[row["name"]]
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

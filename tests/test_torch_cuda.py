@@ -521,3 +521,69 @@ def test_hierarchical_engine_on_card_equals_from_scratch(card, tmp_path):
     got, stats = cycle(spec(loads), restarted)
     assert stats.restored and not stats.full and stats.lanes_solved == 0
     assert got == want
+
+
+def test_reconcile_on_card_equals_cpu_float64(card, monkeypatch):
+    """One 8a-sized reconcile (512 VAs, a model each, 8 slice shapes:
+    4096 candidate lanes, half the VAs held at p95 TTFT) on the card in
+    float64, then two more cycles with changed loads: every VA's
+    published status and conditions, the solution it was published from
+    and the ReconcileResult equal the same reconciler's on the CPU (the
+    kernels' plain versions)."""
+    import reconcile_cluster as rc
+
+    from workload_variant_autoscaler_tpu_torch.controller import translate
+
+    c = rc.Cluster(variants=512, namespaces=8, models=512, profiles=8,
+                   percentile=0.95, seed=3)
+    clock = rc.Clock()
+    load = rc.loads(c)
+    builds = [rc.build(rc.PORT, c, clock,
+                       {k: dict(v) for k, v in load.items()},
+                       device=dev, dtype=torch.float64)
+              for dev in (card, "cpu")]
+    seen = {}
+    orig = translate.create_optimized_alloc
+
+    def spy(name, namespace, solution, now=None):
+        d = solution.allocations[f"{name}:{namespace}"]
+        seen[(name, namespace)] = (d.accelerator, d.num_replicas, d.max_batch)
+        return orig(name, namespace, solution, now=now)
+
+    monkeypatch.setattr(translate, "create_optimized_alloc", spy)
+    rng = np.random.default_rng(4)
+    for cycle in range(3):
+        out = []
+        for b in builds:
+            seen.clear()
+            res = b.rec.reconcile()
+            out.append((res.processed, res.skipped, res.degraded,
+                        res.error, dict(seen), rc.published(b, c)))
+        assert out[0] == out[1], cycle
+        assert len(out[0][0]) == c.variants
+        clock.advance(60.0)
+        rc.churn(load, 0.05, rng)
+        for b in builds:
+            rc.set_loads(b, load)
+
+
+def test_warmup_raises_when_the_library_cannot_be_built(card, tmp_path,
+                                                        monkeypatch):
+    """The warm-up is not best-effort: a kernel source that does not
+    compile makes it raise (the build points at a broken copy of the
+    source; nothing else changes)."""
+    from workload_variant_autoscaler_tpu_torch.ops import _build
+    from workload_variant_autoscaler_tpu_torch.ops import fused
+
+    broken = tmp_path / "bisect_kernel.cu"
+    broken.write_text(_build.SOURCES["bisect_kernel"].read_text()
+                      + "\nthis line is not C++;\n")
+    monkeypatch.setitem(_build.SOURCES, "bisect_kernel", broken)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    tk._launcher.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fused.warmup(256, 16, 0.95, device=card)
+    finally:
+        tk._launcher.cache_clear()

@@ -200,6 +200,17 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import workload_variant_autoscaler_tpu_torch.solver.hierarchy\n"
         "import workload_variant_autoscaler_tpu_torch.stream.checkpoint\n"
         "import workload_variant_autoscaler_tpu_torch.controller.reconciler\n"
+        "import workload_variant_autoscaler_tpu_torch.controller\n"
+        "import workload_variant_autoscaler_tpu_torch.controller.drift\n"
+        "import workload_variant_autoscaler_tpu_torch.controller.schema\n"
+        "import workload_variant_autoscaler_tpu_torch.actuator\n"
+        "import workload_variant_autoscaler_tpu_torch.collector\n"
+        "import workload_variant_autoscaler_tpu_torch.faults\n"
+        "import workload_variant_autoscaler_tpu_torch.metrics\n"
+        "import workload_variant_autoscaler_tpu_torch.obs\n"
+        "import workload_variant_autoscaler_tpu_torch.ops.analyzer\n"
+        "import workload_variant_autoscaler_tpu_torch.stream.state\n"
+        "import workload_variant_autoscaler_tpu_torch.utils\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'workload_variant_autoscaler_tpu'\n"

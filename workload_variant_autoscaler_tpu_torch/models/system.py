@@ -434,6 +434,33 @@ class System:
         self.allocation_solution = AllocationSolution(allocations=allocations)
         return self.allocation_solution
 
+    def variant_power_watts(self, name: str,
+                            replicas: Optional[int] = None) -> float:
+        """Modeled power draw of a server's chosen allocation: per-chip
+        power at the allocation's utilisation x chips x replicas (it
+        feeds the power gauges). `replicas` overrides the allocation's
+        count (the published recommendation may differ after
+        stabilization); the same total load spread over more replicas
+        runs each at proportionally lower utilisation, so rho is
+        rescaled, not reused."""
+        server = self.servers.get(name)
+        if server is None or server.allocation is None:
+            return 0.0
+        alloc = server.allocation
+        acc = self.accelerators.get(alloc.accelerator)
+        model = self.models.get(server.model_name)
+        if acc is None or model is None:
+            return 0.0
+        chips = model.num_instances(acc.name) * acc.chips
+        if replicas is None or replicas == alloc.num_replicas:
+            n, rho = alloc.num_replicas, alloc.rho
+        else:
+            n = replicas
+            if n <= 0:
+                return 0.0
+            rho = min(alloc.rho * alloc.num_replicas / n, 1.0)
+        return acc.power(rho) * chips * n
+
     def total_cost(self) -> float:
         return sum(
             s.allocation.cost for s in self.servers.values() if s.allocation is not None

@@ -17,7 +17,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
+
+from ..obs.profile import DEVICE_AUDIT
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"bisect_kernel": _PKG / "csrc" / "bisect_kernel.cu"}
@@ -86,10 +89,13 @@ def _compile(name: str) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for one source, built first if needed."""
+    """The loaded library for one source, built first if needed. The
+    first use in a process counts as one compile of `name` in the device
+    audit, with the seconds the build and load took."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             if not library_path(name).exists():
                 _compile(name)
             lib = ctypes.CDLL(str(library_path(name)))
@@ -97,4 +103,5 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
             _loaded[name] = lib
+            DEVICE_AUDIT.note_compile(name, time.perf_counter() - t0)
         return lib

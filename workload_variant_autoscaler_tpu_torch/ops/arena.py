@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from ..obs.profile import DEVICE_AUDIT
 from .batched import QueueBatch, SLOTargets
 from .fused import EpilogueBatch
 from .queueing import MAX_QUEUE_TO_BATCH_RATIO
@@ -152,6 +153,8 @@ class CandidateArena:
                 buf[:c] = rows[name]
             buf[c:] = fill
         self.packs += 1
+        # one host-to-device copy per staged column (device audit)
+        DEVICE_AUDIT.note_transfer("h2d", len(columns))
 
         def f(name):
             return torch.tensor(slab[name], dtype=dtype, device=device)

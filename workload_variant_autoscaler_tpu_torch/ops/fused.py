@@ -17,11 +17,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device, resolve_dtype
+from . import _build
 from .batched import (
     QueueBatch,
     SizingResult,
     SLOTargets,
     _analyze_core,
+    k_max_bucket,
+    k_max_for,
+    make_queue_batch,
     size_batch,
     size_batch_tail,
 )
@@ -120,3 +125,37 @@ def decide_batch(q: QueueBatch, targets: SLOTargets, epi: EpilogueBatch,
     """The packed [N_ROWS, B] decision of one sizing group."""
     sized = size_stage(q, targets, k_max, ttft_percentile, backend)
     return _epilogue(q, sized, epi, k_max)
+
+
+def warmup(max_batch: int = 256, bucket: int = 16,
+           ttft_percentile: float | None = None, *,
+           device=None, dtype=None) -> None:
+    """Build the CUDA library and run one `decide_batch` with
+    `backend="kernel"` at one sizing group's shape (`bucket` lanes, K
+    from `max_batch`, the tail form when `ttft_percentile` is set), so
+    the first reconcile cycle pays neither the build nor a first launch.
+    Counterpart of the reference package's `ops/batched.py warmup`; call
+    it for each entry of `controller.translate.warmup_plan`. Runs on the
+    card unless `device="cpu"` is asked (the kernels' plain versions, no
+    build). Raises on any failure to build or launch: nothing here is
+    best-effort."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    if dev.type == "cuda":
+        _build.library("bisect_kernel")
+    b = bucket
+    q = make_queue_batch(
+        np.full(b, 7.0), np.full(b, 0.03), np.full(b, 5.0), np.full(b, 0.1),
+        np.full(b, 128.0), np.full(b, 128.0),
+        np.full(b, max_batch, dtype=np.int64), dtype=dt, device=dev)
+    targets = SLOTargets(ttft=torch.full((b,), 500.0, dtype=dt, device=dev),
+                         itl=torch.full((b,), 24.0, dtype=dt, device=dev),
+                         tps=torch.zeros(b, dtype=dt, device=dev))
+    epi = make_epilogue_batch(np.full(b, 1.0), np.full(b, 1, dtype=np.int64),
+                              np.full(b, 1.0), dt, dev)
+    k_max = k_max_bucket(k_max_for([max_batch]))
+    decide_batch(q, targets, epi, k_max, ttft_percentile=ttft_percentile,
+                 backend="kernel")
+    if dev.type == "cuda":
+        # a fault during the launch surfaces here, not in the first cycle
+        torch.cuda.synchronize(dev)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.profile import DEVICE_AUDIT
+
 DEFAULT_DTYPE = torch.float32
 
 
@@ -37,5 +39,7 @@ def resolve_dtype(dtype=None) -> torch.dtype:
 
 
 def readback(t: torch.Tensor) -> np.ndarray:
-    """The single device-to-host copy of a packed result."""
+    """The single device-to-host copy of a packed result (counted as one
+    d2h transfer by the device audit)."""
+    DEVICE_AUDIT.note_transfer("d2h")
     return t.detach().cpu().numpy()

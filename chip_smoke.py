@@ -31,9 +31,13 @@ polled reconciler, a storm and an escalation, a warm restart of the core
 from its checkpoint, and the controller process itself
 (`python -m workload_variant_autoscaler_tpu_torch.controller` in dev
 mode, fed by pushes, scraped until every VA's published replicas equal a
-polled reference, stopped with SIGTERM) (phase 9). It prints one JSON
-line per phase-8 and phase-9 fleet, one for the kernels and a final
-status line.
+polled reference, stopped with SIGTERM) (phase 9), then runs the
+goodput twin (`emulator.twin.run_scenario`: the real Reconciler through
+every library scenario in simulated time, full duration) on the card,
+three scenarios in float64 against the CPU and one rerun byte for byte,
+and the capacity planner on the card against the CPU and as its CLI
+(phase 10). It prints one JSON line per phase-8 and phase-9 fleet and
+per phase-10 run, one for the kernels and a final status line.
 Every phase raises on failure; the script exits non-zero when CUDA is
 absent or any check fails.
 """
@@ -149,6 +153,24 @@ STREAM_REFERENCE = (("WVA_STREAM", "off"), ("WVA_SOLVE_FULL_EVERY", "1"))
 PROCESS_ENV: dict = {}
 PROCESS_READY_S = 300.0
 
+# phase 10: the goodput twin and the planner on the card. 10a: every
+# library scenario (SCENARIOS, STREAMING_SCENARIOS, ADVERSARIAL_SCENARIOS)
+# at full duration in float32, in this process; 10b: TWIN_F64 at full
+# duration in float64, on the card against the port on the CPU, and 10c:
+# TWIN_RERUN again on the card in float32 against 10a's run, both in
+# TWIN_WORKERS worker processes started alongside 10a; 10d: the planner
+# over PLAN_FITS fits of every default slice shape (and two options it
+# must refuse) at PLAN_RATE req/s, mean and p95 TTFT, card against CPU in
+# float64, then its CLI as a subprocess on the card.
+TWIN_F64 = ("pool-drain", "restart-under-load", "diurnal-wave")
+TWIN_RERUN = "flash-crowd"
+TWIN_WORKERS = 4
+PLAN_FITS = 8
+PLAN_RATE = 80.0
+PLAN_REPS = 5
+# phase 10's device (a CPU rehearsal sets "cpu")
+TWIN_DEVICE = "cuda"
+
 # H100 SXM peaks (NVIDIA data sheet; the special-function rate is 16
 # results per clock per SM for compute capability 9.0, at the 1.98 GHz
 # boost clock over 132 SMs)
@@ -168,6 +190,8 @@ RTOL = {"B1": 1e-3, "B2": 2e-3}   # float32, tests/test_pallas.py tolerances
 RTOL_F64 = 1e-9
 
 SLICE_SPEED = (1.0, 0.55, 0.4, 0.3, 0.35, 0.25, 0.65, 0.35)
+# the planner's ninth default shape (v6e-8), beyond build_fleet's eight
+PLAN_SPEED = SLICE_SPEED + (0.3,)
 
 
 def log(*args) -> None:
@@ -2298,6 +2322,297 @@ def process_phase(card, rc, c, workdir) -> None:
         shim.stop()
 
 
+def quiet_wva_loggers(level) -> None:
+    import logging
+
+    for name in list(logging.root.manager.loggerDict):
+        if name.startswith("wva"):
+            logging.getLogger(name).setLevel(level)
+
+
+def twin_library() -> dict:
+    from workload_variant_autoscaler_tpu_torch.emulator import scenarios
+
+    return {**scenarios.SCENARIOS, **scenarios.STREAMING_SCENARIOS,
+            **scenarios.ADVERSARIAL_SCENARIOS}
+
+
+def twin_signature():
+    """tests/twin_signature.py (signature, differences, text), shared
+    with the port's twin tests."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import twin_signature as ts
+
+    return ts
+
+
+def twin_job(name: str, device: str, dtype_name: str, duration_s: float):
+    """One twin run of `duration_s` sim seconds (the scenario's own in
+    the smoke), in a worker process: (name, device, dtype, signature,
+    launches, wall s)."""
+    import logging
+
+    from workload_variant_autoscaler_tpu_torch.emulator import twin
+    from workload_variant_autoscaler_tpu_torch.emulator.scenarios import (
+        abbreviated)
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    torch.set_num_threads(1)
+    quiet_wva_loggers(logging.CRITICAL)
+    ts = twin_signature()
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    result = twin.run_scenario(
+        abbreviated(twin_library()[name], duration_s), device=device,
+        dtype=getattr(torch, dtype_name))
+    wall = time.perf_counter() - t0
+    return (name, device, dtype_name, ts.signature(result),
+            dict(bk.launches), wall)
+
+
+@contextlib.contextmanager
+def reconcile_walls():
+    """For the block's duration, the wall of every Reconciler.reconcile
+    call (polled cycles and the streaming core's micro-cycles), in ms,
+    synchronized with the card."""
+    from workload_variant_autoscaler_tpu_torch.controller import reconciler
+
+    walls: list = []
+    orig = reconciler.Reconciler.reconcile
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    reconciler.Reconciler.reconcile = timed
+    try:
+        yield walls
+    finally:
+        reconciler.Reconciler.reconcile = orig
+
+
+def plan_options(fits: int, seed: int) -> list:
+    """The planner's options: `fits` draws of build_fleet's recipe (the
+    Llama-3.1-8B fit scaled by the slice's speed) on every default slice
+    shape, then an option whose ITL floor is above the target and one with
+    no batch slot."""
+    from workload_variant_autoscaler_tpu_torch import planner
+    from workload_variant_autoscaler_tpu_torch.models.chips import DEFAULT_SLICES
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for s, acc in enumerate(DEFAULT_SLICES):
+        for _ in range(fits):
+            u = rng.uniform(0.8, 1.25, 4)
+            f = PLAN_SPEED[s] * rng.uniform(0.95, 1.05)
+            out.append(planner.SliceOption(
+                acc=acc.name, cost=float(acc.cost),
+                alpha=float(6.973 * u[0] * f), beta=float(0.027 * u[1] * f),
+                gamma=float(5.2 * u[2] * f), delta=float(0.1 * u[3] * f),
+                max_batch=int(rng.choice([64, 128, 256]))))
+    out.append(planner.SliceOption("itl-floor", 5.0, 30.0, 0.1, 5.0, 0.1, 64))
+    out.append(planner.SliceOption("no-slot", 5.0, 6.0, 0.02, 5.0, 0.1, 0))
+    return out
+
+
+def plan_rows_equal(ref, mine) -> None:
+    import math
+
+    if [(r.acc, r.feasible, r.replicas, r.reason) for r in ref] != \
+            [(r.acc, r.feasible, r.replicas, r.reason) for r in mine]:
+        raise AssertionError("planner rows: order, feasibility or "
+                             "replicas differ between the card and the CPU")
+    for a, b in zip(ref, mine):
+        for k, v in dataclasses.asdict(a).items():
+            w = getattr(b, k)
+            if isinstance(v, float) and not (
+                    v == w or math.isclose(v, w, rel_tol=RTOL_F64)):
+                raise AssertionError(f"planner row {a.acc} {k}: {v} vs {w}")
+
+
+def planner_phase(card) -> dict:
+    """10d: the planner on the card against the CPU (float64), its times
+    (float32), and its CLI as a subprocess with WVA_PLATFORM unset;
+    returns the launches of one tail-form plan on the card."""
+    from workload_variant_autoscaler_tpu_torch import planner
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+    from workload_variant_autoscaler_tpu_torch.ops.analyzer import TargetPerf
+
+    opts = plan_options(PLAN_FITS, SEED + 11)
+    target = TargetPerf(ttft=500.0, itl=24.0)
+    per_plan = {}
+    for pct_ in (None, TAIL_PCT):
+        ref = planner.plan(opts, target, PLAN_RATE, 128, 128, pct_,
+                           device="cpu", dtype=torch.float64)
+        bk.reset_launches()
+        mine = planner.plan(opts, target, PLAN_RATE, 128, 128, pct_,
+                            device=TWIN_DEVICE, dtype=torch.float64)
+        launched = dict(bk.launches)
+        plan_rows_equal(ref, mine)
+        if pct_ is not None and (launched["mean"] < 1 or launched["tail"] < 1):
+            raise AssertionError(f"the tail-form plan launched {launched}")
+        walls = {}
+        for dev in (TWIN_DEVICE, "cpu"):
+            times = []
+            for _ in range(PLAN_REPS):
+                t0 = time.perf_counter()
+                planner.plan(opts, target, PLAN_RATE, 128, 128, pct_,
+                             device=dev, dtype=torch.float32)
+                times.append((time.perf_counter() - t0) * 1e3)
+            walls[dev] = statistics.median(times)
+        form = "mean" if pct_ is None else f"p{int(pct_ * 100)}"
+        per_plan[form] = {"B1": launched["mean"], "B2": launched["tail"]}
+        log(json.dumps({
+            "phase": "10d", "card": card, "form": form,
+            "options": len(opts), "feasible": sum(r.feasible for r in mine),
+            "launches": per_plan[form], "equal_float64": True,
+            "plan_ms_card_float32": walls[TWIN_DEVICE],
+            "plan_ms_cpu_float32": walls["cpu"]}))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profiles.yaml")
+        with open(path, "w") as f:
+            for o in opts:
+                f.write(f"- {{acc: {o.acc}, cost: {o.cost!r}, alpha: "
+                        f"{o.alpha!r}, beta: {o.beta!r}, gamma: {o.gamma!r}, "
+                        f"delta: {o.delta!r}, maxBatch: {o.max_batch}}}\n")
+        env_ = {k: v for k, v in os.environ.items() if k != "WVA_PLATFORM"}
+        env_.update(PROCESS_ENV)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "workload_variant_autoscaler_tpu_torch"
+             ".planner", "--profiles", path, "--rate", str(PLAN_RATE),
+             "--slo-ttft", "500", "--slo-itl", "24", "--ttft-percentile",
+             str(TAIL_PCT), "--json"],
+            env=env_, cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"planner CLI exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    rows = json.loads(out.stdout)
+    same = rows == [dataclasses.asdict(r) for r in planner.plan(
+        opts, target, PLAN_RATE, 128, 128, TAIL_PCT, device=TWIN_DEVICE,
+        dtype=torch.float32)]
+    if not same:
+        raise AssertionError("the planner CLI's rows differ from plan() "
+                             "on the card")
+    log(json.dumps({"phase": "10d", "card": card, "cli": "planner --json "
+                    "--ttft-percentile", "exit_code": 0, "rows": len(rows),
+                    "equal_to_plan_on_card": True, "wall_s": cli_s}))
+    return per_plan
+
+
+def twin_phase(card) -> dict:
+    """Phase 10 (10a-10d); returns the B1/B2 launches per twin cycle and
+    per plan for the kernels line."""
+    import logging
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from workload_variant_autoscaler_tpu_torch.emulator import twin
+    from workload_variant_autoscaler_tpu_torch.emulator.scenarios import (
+        ADVERSARIAL_SCENARIOS, SCENARIOS)
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    quiet_wva_loggers(logging.CRITICAL)
+    ts = twin_signature()
+    library = twin_library()
+    jobs = [(n, dev, "float64", library[n].duration_s) for n in TWIN_F64
+            for dev in (TWIN_DEVICE, "cpu")]
+    jobs.append((TWIN_RERUN, TWIN_DEVICE, "float32",
+                 library[TWIN_RERUN].duration_s))
+    # a worker that dies fails its future at once (BrokenProcessPool)
+    pool = ProcessPoolExecutor(
+        TWIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        pending = [pool.submit(twin_job, *job) for job in jobs]
+        t10a = time.perf_counter()
+        b1 = b2 = cycles = 0
+        mine = {}
+        for name, scenario in library.items():
+            kind = ("SCENARIOS" if name in SCENARIOS else "ADVERSARIAL"
+                    if name in ADVERSARIAL_SCENARIOS else "STREAMING")
+            bk.reset_launches()
+            with reconcile_walls() as walls:
+                t0 = time.perf_counter()
+                result = twin.run_scenario(scenario, device=TWIN_DEVICE,
+                                           dtype=torch.float32)
+                wall = time.perf_counter() - t0
+            launched = dict(bk.launches)
+            d = result.to_dict()
+            if launched["mean"] < 1:
+                raise AssertionError(f"{name}: B1 was not launched")
+            if not (0.0 <= d["goodput_fraction"] <= 1.0
+                    and 0.0 <= d["slo_attainment"] <= 1.0
+                    and d["cost_dollar_seconds"] > 0.0 and result.cycles > 0):
+                raise AssertionError(f"{name}: bad score sheet {d}")
+            if name == TWIN_RERUN:
+                mine[name] = ts.signature(result)
+            b1 += launched["mean"]
+            b2 += launched["tail"]
+            cycles += result.cycles
+            log(json.dumps({
+                "phase": "10a", "card": card, "scenario": name,
+                "library": kind, "dtype": "float32",
+                "duration_s": scenario.duration_s,
+                "goodput_fraction": d["goodput_fraction"],
+                "goodput_floor": scenario.goodput_floor,
+                "slo_attainment": d["slo_attainment"],
+                "cycles": result.cycles, "raised_cycles": d["raised_cycles"],
+                "fault_trips": d["fault_trips"],
+                "launches": {"B1": launched["mean"], "B2": launched["tail"]},
+                "reconcile_calls": len(walls), "wall_s": wall,
+                "reconcile_ms_median": statistics.median(walls),
+                "reconcile_ms_p95": pct(walls, 0.95)}))
+        log(f"  10a: {len(library)} scenarios in "
+            f"{time.perf_counter() - t10a:.1f} s")
+        results = [p.result(timeout=900) for p in pending]
+    finally:
+        workers = list((pool._processes or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in workers:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=30)
+    by = {(n, dev, dt): (sig, launched, wall)
+          for n, dev, dt, sig, launched, wall in results}
+    for name in TWIN_F64:
+        card_sig, launched, card_wall = by[(name, TWIN_DEVICE, "float64")]
+        cpu_sig, _, cpu_wall = by[(name, "cpu", "float64")]
+        diff = ts.differences(cpu_sig, card_sig, RTOL_F64)
+        if diff:
+            raise AssertionError(f"10b {name}: the card's float64 twin "
+                                 f"differs from the CPU's: {diff}")
+        if launched["mean"] < 1:
+            raise AssertionError(f"10b {name}: B1 was not launched")
+        log(json.dumps({
+            "phase": "10b", "card": card, "scenario": name,
+            "dtype": "float64", "equal": True,
+            "goodput_fraction": card_sig["result"]["goodput_fraction"],
+            "cycles": card_sig["result"]["cycles"],
+            "decisions": len(card_sig["decisions"]),
+            "ticks": len(card_sig["ticks"]),
+            "launches": {"B1": launched["mean"], "B2": launched["tail"]},
+            "wall_s_card": card_wall, "wall_s_cpu": cpu_wall}))
+    again, _, rerun_wall = by[(TWIN_RERUN, TWIN_DEVICE, "float32")]
+    same = ts.text(again) == ts.text(mine[TWIN_RERUN])
+    log(json.dumps({"phase": "10c", "card": card, "scenario": TWIN_RERUN,
+                    "dtype": "float32", "byte_identical": same,
+                    "bytes": len(ts.text(again)), "wall_s": rerun_wall}))
+    if not same:
+        raise AssertionError(f"10c {TWIN_RERUN}: a rerun on the card is "
+                             "not byte-identical")
+    per_plan = planner_phase(card)
+    return {"per_twin_cycle": {"B1": b1 / cycles, "B2": b2 / cycles},
+            "per_plan": per_plan}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2505,6 +2820,18 @@ def main() -> int:
         key = row["name"]
         row["launches_per_micro_cycle"] = [x[key] for x in stream_launches]
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    log("phase 10: the goodput twin and the planner on the card")
+    gc.collect()
+    t10 = time.perf_counter()
+    twin_launches = twin_phase(card)
+    for row in rows:
+        row["launches_per_twin_cycle"] = \
+            twin_launches["per_twin_cycle"][row["name"]]
+        row["launches_per_plan"] = {
+            form: n[row["name"]]
+            for form, n in twin_launches["per_plan"].items()}
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -695,3 +695,68 @@ def test_main_exits_nonzero_when_the_library_cannot_be_built(
                           "--allow-http-prom", "--health-port", "0",
                           "--metrics-port", "0"]) == 1
     assert "the CUDA kernel library failed to build" in capfd.readouterr().out
+
+
+def test_twin_on_card_equals_cpu_float64(card):
+    """The abbreviated flash crowd through the goodput twin: the run on
+    the card in float64 (the kernels) has the signature of the run on the
+    CPU (the batched path): exactly for decisions, within rel 1e-9 for
+    floats; and the card's reconcilers launched the mean-form kernel (a
+    cycle that sizes nothing launches none) and never the tail form."""
+    from twin_signature import differences, signature
+
+    from workload_variant_autoscaler_tpu_torch.emulator import twin
+    from workload_variant_autoscaler_tpu_torch.emulator.scenarios import (
+        SCENARIOS,
+        abbreviated,
+    )
+
+    sc = abbreviated(SCENARIOS["flash-crowd"], 300.0)
+    ref = twin.run_scenario(sc, device="cpu", dtype=torch.float64)
+    tk.reset_launches()
+    mine = twin.run_scenario(sc, device=card, dtype=torch.float64)
+    if card.type == "cuda":
+        assert tk.launches["mean"] > 0 and tk.launches["tail"] == 0
+    assert differences(signature(ref), signature(mine), 1e-9) == []
+
+
+def test_plan_on_card_equals_cpu(card):
+    """The planner's rows on the card in float64 equal the CPU's, mean
+    and p95 form, over every default slice shape; the tail form launched
+    B2 on the TTFT rows and B1 on the ITL rows."""
+    import math
+    from dataclasses import asdict
+
+    from workload_variant_autoscaler_tpu_torch import planner
+    from workload_variant_autoscaler_tpu_torch.models.chips import (
+        DEFAULT_SLICES,
+    )
+    from workload_variant_autoscaler_tpu_torch.ops.analyzer import TargetPerf
+
+    rng = np.random.default_rng(7)
+    opts = [planner.SliceOption(
+        acc=s.name, cost=float(s.cost), alpha=6.973 * rng.uniform(0.3, 1.2),
+        beta=0.027 * rng.uniform(0.3, 1.2), gamma=5.2 * rng.uniform(0.3, 1.2),
+        delta=0.1 * rng.uniform(0.3, 1.2),
+        max_batch=int(rng.choice([64, 128, 256])))
+        for s in DEFAULT_SLICES for _ in range(4)]
+    target = TargetPerf(ttft=500.0, itl=24.0)
+    for pct in (None, 0.95):
+        ref = planner.plan(opts, target, 80.0, 128, 128, pct, device="cpu",
+                           dtype=torch.float64)
+        tk.reset_launches()
+        mine = planner.plan(opts, target, 80.0, 128, 128, pct, device=card,
+                            dtype=torch.float64)
+        if card.type == "cuda":
+            want = {"mean": 0, "tail": 0} if pct is None else \
+                {"mean": 1, "tail": 1}
+            assert tk.launches == want
+        for a, b in zip(ref, mine):
+            da, db = asdict(a), asdict(b)
+            for k, v in da.items():
+                if isinstance(v, float):
+                    assert v == db[k] or math.isclose(v, db[k],
+                                                      rel_tol=1e-9), k
+                else:
+                    assert v == db[k], k
+        assert len(ref) == len(mine)

@@ -217,6 +217,15 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import workload_variant_autoscaler_tpu_torch.controller.__main__\n"
         "import workload_variant_autoscaler_tpu_torch.controller.runtime\n"
         "import workload_variant_autoscaler_tpu_torch.metrics.authz\n"
+        "import workload_variant_autoscaler_tpu_torch.emulator\n"
+        "import workload_variant_autoscaler_tpu_torch.emulator.twin\n"
+        "import workload_variant_autoscaler_tpu_torch.emulator.adversary\n"
+        "import workload_variant_autoscaler_tpu_torch.emulator.experiment\n"
+        "import workload_variant_autoscaler_tpu_torch.emulator.server\n"
+        "import workload_variant_autoscaler_tpu_torch.emulator.scenarios\n"
+        "import workload_variant_autoscaler_tpu_torch.planner\n"
+        "import workload_variant_autoscaler_tpu_torch.fit\n"
+        "import workload_variant_autoscaler_tpu_torch.fit.__main__\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'workload_variant_autoscaler_tpu'\n"
@@ -251,4 +260,34 @@ def test_controller_help_imports_neither_jax_nor_the_reference_package():
                          text=True, timeout=120, cwd=repo)
     assert out.returncode == 0, out.stderr
     assert "--leader-elect" in out.stdout
+    assert out.stdout.strip().endswith("loaded []")
+
+
+@pytest.mark.parametrize("module,usage", [
+    ("planner", "--ttft-percentile"),
+    ("emulator", "--with-prom-api"),
+    ("emulator.experiment", "--mode"),
+    ("fit", "--crd-patch"),
+])
+def test_slice_clis_help_imports_neither(module, usage):
+    """The planner's, the emulator's and the fitter's `python -m ...
+    --help` print their usage and exit 0 without loading JAX or the
+    reference package."""
+    code = (
+        "import atexit, runpy, sys\n"
+        "def check():\n"
+        "    bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "                 or m.startswith(('jax.', 'jaxlib'))\n"
+        "                 or m == 'workload_variant_autoscaler_tpu'\n"
+        "                 or m.startswith('workload_variant_autoscaler_tpu.'))\n"
+        "    print('loaded', bad)\n"
+        "atexit.register(check)\n"
+        f"sys.argv = ['{module}', '--help']\n"
+        f"runpy.run_module('workload_variant_autoscaler_tpu_torch.{module}',\n"
+        "                 run_name='__main__')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=repo)
+    assert out.returncode == 0, out.stderr
+    assert usage in out.stdout
     assert out.stdout.strip().endswith("loaded []")

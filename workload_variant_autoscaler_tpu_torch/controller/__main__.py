@@ -68,17 +68,11 @@ from ..obs import (
     render_profile,
     render_tree,
 )
-from ..utils import get_logger, kv, resolve_device
+from ..utils import get_logger, kv
+from ..utils.device import PLATFORM_ENV, platform_device
 from .kube import RestKube, in_memory_kube_from_manifests
 from .reconciler import CONFIG_MAP_NAMESPACE, Reconciler
 from .runtime import HealthServer, LeaderElector
-
-# The reference package's platform knob, read with the port's mapping:
-# unset, empty or one of CARD_PLATFORMS runs the engine on the card,
-# `cpu` on the host; any other value (e.g. `tpu`) exits 1.
-PLATFORM_ENV = "WVA_PLATFORM"
-CARD_PLATFORMS = ("", "cuda", "gpu", "ambient")
-
 
 def _fetch_profiles(url: str, file: str | None,
                     cycle: int | None = None) -> list[dict]:
@@ -358,19 +352,14 @@ def main(argv=None) -> int:
     # CUDA, so its default is the card and a host without CUDA fails
     # here; the reference package's default pins JAX to the host CPU,
     # where its analysis kernel runs in well under a millisecond.
-    raw_platform = os.environ.get(PLATFORM_ENV, "").strip().lower()
-    if raw_platform not in CARD_PLATFORMS + ("cpu",):
+    platform, device = platform_device("the controller process")
+    if device is None:
         log.error(f"unsupported {PLATFORM_ENV}; expected one of cuda, "
                   "gpu, ambient (the card) or cpu",
-                  extra=kv(value=raw_platform))
+                  extra=kv(value=platform))
         return 1
-    try:
-        device = resolve_device("cpu" if raw_platform == "cpu" else "cuda")
-    except RuntimeError as e:
-        raise RuntimeError(f"{e} (the controller process: set "
-                           f"{PLATFORM_ENV}=cpu)") from e
     log.info("device platform pinned",
-             extra=kv(platform=raw_platform or "cuda", device=str(device),
+             extra=kv(platform=platform, device=str(device),
                       name=(torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "host cpu")))
 

@@ -8,12 +8,21 @@ float64 is used when asked, as the parity tests do.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ..obs.profile import DEVICE_AUDIT
 
 DEFAULT_DTYPE = torch.float32
+
+# The reference package's platform knob, read by the port's process entry
+# points (the controller, the planner): unset, empty or one of
+# CARD_PLATFORMS runs on the card, `cpu` on the host; any other value
+# (e.g. `tpu`) is refused.
+PLATFORM_ENV = "WVA_PLATFORM"
+CARD_PLATFORMS = ("", "cuda", "gpu", "ambient")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -27,6 +36,21 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def platform_device(process: str) -> tuple[str, torch.device | None]:
+    """(platform, device) of `WVA_PLATFORM` for `process`: the card or
+    the host, or device None for a value the port does not know (the
+    caller exits 1). Raises, naming the knob, when the card is asked for
+    and CUDA is absent."""
+    raw = os.environ.get(PLATFORM_ENV, "").strip().lower()
+    if raw not in CARD_PLATFORMS + ("cpu",):
+        return raw, None
+    try:
+        return raw or "cuda", resolve_device("cpu" if raw == "cpu"
+                                             else "cuda")
+    except RuntimeError as e:
+        raise RuntimeError(f"{e} ({process}: set {PLATFORM_ENV}=cpu)") from e
 
 
 def resolve_dtype(dtype=None) -> torch.dtype:

@@ -36,10 +36,18 @@ goodput twin (`emulator.twin.run_scenario`: the real Reconciler through
 every library scenario in simulated time, full duration) on the card,
 three scenarios in float64 against the CPU and one rerun byte for byte,
 and the capacity planner on the card against the CPU and as its CLI
-(phase 10). It prints one JSON line per phase-8 and phase-9 fleet and
-per phase-10 run, one for the kernels and a final status line.
-Every phase raises on failure; the script exits non-zero when CUDA is
-absent or any check fails.
+(phase 10), then builds the native host library and holds the native
+and scalar backends against the kernel (calculate and three reconcile
+cycles), splits the decision over 4-entry lane and candidate meshes of
+the card (bit for bit the unsharded decision, 4 launches of each form
+per group), drives the flat and the hierarchical engine on the lane mesh
+against unsharded ones, restarts from a lane-mesh checkpoint, and reads
+the mesh knobs (phase 11). Phases 1-10 pin WVA_NATIVE_KERNEL=false, so
+their CPU references stay on the batched path. It prints one JSON line
+per phase-8 and phase-9 fleet, per phase-10 run and per phase-11 part,
+one for the kernels and a final status line. Every phase raises on
+failure; the script exits non-zero when CUDA is absent or any check
+fails.
 """
 
 from __future__ import annotations
@@ -170,6 +178,25 @@ PLAN_RATE = 80.0
 PLAN_REPS = 5
 # phase 10's device (a CPU rehearsal sets "cpu")
 TWIN_DEVICE = "cuda"
+
+# phase 11: the host backends and the device mesh. 11a: native against
+# the kernel on phase 5's fleet (float64), scalar against native on the
+# 64-variant fleet, NATIVE_RECON_CYCLES reconcile cycles of 8a's fleet
+# with WVA_NATIVE_KERNEL=true against the kernel reconciler (float64),
+# calculate at 4096 lanes, median of NATIVE_REPS (the host backends'
+# in a spawned worker beside 11b); 11b: MESH_SHARDS-entry lane and
+# candidate meshes of the card: the sharded decision against the
+# unsharded one, MESH_CYCLES churned cycles of the flat engine (512
+# variants) and the hierarchical one (MESH_HIER_VARIANTS) on the lane
+# mesh against unsharded engines, a restart from the lane-mesh
+# checkpoint; 11c: the knobs on one card.
+MESH_SHARDS = 4
+MESH_CYCLES = 10
+MESH_HIER_VARIANTS = 4096
+NATIVE_REPS = 5
+NATIVE_RECON_CYCLES = 3
+# phase 11's device (a CPU rehearsal sets "cpu")
+MESH_DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet; the special-function rate is 16
 # results per clock per SM for compute capability 9.0, at the 1.98 GHz
@@ -2613,6 +2640,428 @@ def twin_phase(card) -> dict:
             "per_plan": per_plan}
 
 
+def host_backend_job(backend: str, n_variants: int, n_small: int,
+                     seed: int, reps: int) -> dict:
+    """Phase 11a's host work for one host backend, in a worker process
+    (no card): its decisions on build_fleet(n_small) in float64, and
+    System.calculate at n_variants x 8 lanes, ms, `reps` times (the
+    scalar path's analyzer is the native one, as the port picks it with
+    WVA_NATIVE_KERNEL unset)."""
+    torch.set_num_threads(1)
+    system, opt = make_system(build_fleet(n_small, seed + 1), "cpu",
+                              torch.float64)
+    cycle(system, opt, backend)
+    out: dict = {"small": decisions(system), "walls": []}
+    spec = build_fleet(n_variants, seed)
+    for _ in range(reps):
+        system, _opt = make_system(spec, "cpu", torch.float64)
+        t0 = time.perf_counter()
+        system.calculate(backend=backend)
+        out["walls"].append((time.perf_counter() - t0) * 1e3)
+    out["lanes"] = system.last_solve_lanes
+    return out
+
+
+def lane_errors(a, b) -> tuple[float, float]:
+    """Worst relative TTFT and max-rate errors between the candidate
+    allocations of two Systems over the lanes both hold."""
+    ttft = rate = 0.0
+    for name, server in a.servers.items():
+        other = b.servers[name].all_allocations
+        for acc, x in server.all_allocations.items():
+            y = other.get(acc)
+            if y is None or not y.ttft:
+                continue
+            ttft = max(ttft, abs(x.ttft - y.ttft) / abs(y.ttft))
+            rate = max(rate, abs(x.max_arrv_rate_per_replica
+                                 - y.max_arrv_rate_per_replica)
+                       / abs(y.max_arrv_rate_per_replica))
+    return ttft, rate
+
+
+def synced_ms(fn, reps: int) -> list:
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def native_phase(card) -> dict:
+    """11a on the card: build the native library, native against the
+    kernel at 4096 lanes (float64), the kernel's calculate times, and
+    NATIVE_RECON_CYCLES reconcile cycles with WVA_NATIVE_KERNEL=true
+    against the kernel reconciler (float64). Returns the summary."""
+    from workload_variant_autoscaler_tpu_torch.ops import _build, native
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host library did not build: "
+                             f"{_build.build_logs.get('wva_queueing')}")
+    build_s = time.perf_counter() - t0
+    built = _build.build_logs.get("wva_queueing", "")
+    log(f"  11a: native library {'built' if built else 'loaded'} in "
+        f"{build_s:.3f} s: {built.splitlines()[0] if built else 'cached'}")
+    spec = build_fleet(N_VARIANTS, SEED)
+    nat, onat = make_system(spec, MESH_DEVICE, torch.float64)
+    ker, oker = make_system(spec, MESH_DEVICE, torch.float64)
+    bk.reset_launches()
+    cycle(nat, onat, "native")
+    torch.cuda.synchronize()
+    nat_launches = dict(bk.launches)
+    cycle(ker, oker, "kernel")
+    if nat_launches != {"mean": 0, "tail": 0}:
+        raise AssertionError(f"the native cycle launched {nat_launches}")
+    diff = [n for n, d in decisions(ker).items() if decisions(nat)[n] != d]
+    ttft_err, rate_err = lane_errors(nat, ker)
+    log(f"  11a: native against kernel, float64, {nat.last_solve_lanes} "
+        f"lanes: {len(diff)} of {len(nat.servers)} servers differ; worst "
+        f"lane TTFT rel err {ttft_err:.3e}, rate rel err {rate_err:.3e}")
+    if diff or not nat.generate_solution().allocations:
+        raise AssertionError(f"native decisions differ from the kernel's: "
+                             f"{diff[:5]}")
+    kernel_ms = synced_ms(lambda: ker.calculate(backend="kernel"),
+                          NATIVE_REPS)
+
+    rc = reconcile_cluster()
+    c = rc.Cluster(variants=RECON_VARIANTS, namespaces=RECON_NAMESPACES,
+                   models=RECON_VARIANTS, profiles=8, percentile=TAIL_PCT,
+                   operator=RECON_OPERATOR, seed=SEED + 5)
+    clock = rc.Clock()
+    load = rc.loads(c)
+    pair = (rc.build(rc.PORT, c, clock, load, device=MESH_DEVICE,
+                     dtype=torch.float64),
+            rc.build(rc.PORT, c, clock, load, device=MESH_DEVICE,
+                     dtype=torch.float64))
+    rng = np.random.default_rng(SEED + 14)
+    walls = {"native": [], "kernel": []}
+    with batch_spy() as spy:
+        for n in range(1, NATIVE_RECON_CYCLES + 1):
+            for b in pair:
+                rc.set_loads(b, load)
+            with env("WVA_NATIVE_KERNEL", "true"):
+                out_n = recon_cycle(pair[0], spy)
+            with env("WVA_NATIVE_KERNEL", "false"):
+                out_k = recon_cycle(pair[1], spy)
+            hold_equal(f"11a reconcile cycle {n}", rc, c, pair,
+                       (out_n, out_k))
+            backend = pair[0].rec._solve_engine_obj._analyze_sig[0]
+            if out_n[3] != {"B1": 0, "B2": 0} or backend != "native":
+                raise AssertionError(f"11a cycle {n}: the native reconciler "
+                                     f"ran {backend}, launches {out_n[3]}")
+            if n == 1 and (out_k[3]["B1"] < 1 or out_k[3]["B2"] < 1):
+                raise AssertionError(f"11a: the kernel reconciler launched "
+                                     f"{out_k[3]}")
+            walls["native"].append(out_n[1])
+            walls["kernel"].append(out_k[1])
+            log(f"    11a reconcile cycle {n}: native {out_n[1]:.3f} ms "
+                f"(launches {out_n[3]}), kernel {out_k[1]:.3f} ms "
+                f"(launches {out_k[3]}); processed {len(out_n[0].processed)}"
+                f"; equal=True")
+            clock.advance(60.0)
+            rc.churn(load, RECON_CHURN, rng)
+    return {"build_s": build_s, "lanes": nat.last_solve_lanes,
+            "servers_differ": 0, "ttft_rel_err": ttft_err,
+            "rate_rel_err": rate_err, "kernel_calculate_ms": kernel_ms,
+            "reconcile_ms": walls}
+
+
+def mesh_engines(label, fleet, seed, make, mesh, restart_path=None):
+    """MESH_CYCLES churned cycles (hier_specs, unlimited) through an
+    engine on `mesh` and an unsharded one (float32, the kernels), held
+    equal every cycle. With `restart_path`, the mesh engine checkpoints
+    on its last cycle; a new engine restored from it runs the last spec
+    again (it must solve no lane), then both the restored and the
+    unsharded engine run one more churned cycle, held equal. Returns
+    (the mesh engine's cycle walls, the unsharded one's, the engines,
+    the restart record)."""
+    from workload_variant_autoscaler_tpu_torch import Manager, Optimizer
+
+    def run(spec, engine, m):
+        system, opt = make_system(spec, MESH_DEVICE, torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = engine.calculate(system, backend="kernel", fleet_mesh=m,
+                                 optimizer_spec=opt)
+        Manager(system, Optimizer(opt)).optimize(warm=engine.warm_start())
+        sol = system.generate_solution()
+        engine.finish_cycle(system)
+        torch.cuda.synchronize()
+        return sol, stats, (time.perf_counter() - t0) * 1e3
+
+    sharded = make(restart_path)
+    plain = make(None)
+    specs = list(hier_specs(fleet, MESH_CYCLES + 1, seed))
+    walls = ([], [])
+    for c, spec in specs[:MESH_CYCLES]:
+        sol_m, stats, wall_m = run(spec, sharded, mesh)
+        sol_p, _stats, wall_p = run(spec, plain, None)
+        if sol_m != sol_p:
+            raise AssertionError(f"{label} cycle {c}: the engine on the "
+                                 f"lane mesh differs from the unsharded one")
+        walls[0].append(wall_m)
+        walls[1].append(wall_p)
+        log(f"    {label} cycle {c}: lanes solved {stats.lanes_solved} "
+            f"skipped {stats.lanes_skipped}, mesh {wall_m:.3f} ms, "
+            f"unsharded {wall_p:.3f} ms; equal=True")
+    restart = None
+    if restart_path is not None:
+        restored = make(restart_path)
+        if restored.ckpt_events["restore"] != 1 \
+                or restored._restored_arena_mesh != mesh.size:
+            raise AssertionError(f"{label}: no lane-mesh restore "
+                                 f"{restored.ckpt_events}")
+        sol_r, stats, wall_r = run(specs[MESH_CYCLES - 1][1], restored, mesh)
+        if not stats.restored or stats.lanes_solved:
+            raise AssertionError(f"{label}: the restored engine solved "
+                                 f"{stats.lanes_solved} lanes")
+        c, spec = specs[MESH_CYCLES]
+        sol_n, stats_n, wall_n = run(spec, restored, mesh)
+        sol_p, _stats, _wall = run(spec, plain, None)
+        if sol_n != sol_p:
+            raise AssertionError(f"{label}: the restored engine's next "
+                                 f"cycle differs from the unsharded one")
+        # each shard arena built after the restore holds the checkpoint's
+        # slabs (one per lane bucket it had packed), staged onto the mesh
+        # once: no slab is uploaded whole a second time
+        arenas = list(restored._shard_arenas.values())
+        uploads = [a.full_uploads for a in arenas]
+        slabs = [len(a._slabs) for a in arenas]
+        if not arenas or uploads != slabs:
+            raise AssertionError(f"{label}: shard arenas uploaded "
+                                 f"{uploads} whole slabs for {slabs} slabs "
+                                 f"after the restore")
+        restart = {"restore_cycle_ms": wall_r, "next_cycle_ms": wall_n,
+                   "next_lanes_solved": stats_n.lanes_solved,
+                   "shard_arena_slabs": slabs,
+                   "shard_arena_full_uploads": uploads,
+                   "next_cycle_scatters": sum(a.scatter_packs
+                                              for a in arenas)}
+        log(f"    {label} restart from the arena_mesh={mesh.size} "
+            f"checkpoint: restore cycle {wall_r:.3f} ms, 0 lanes; next "
+            f"cycle {wall_n:.3f} ms, {stats_n.lanes_solved} lanes; shard "
+            f"arenas' slabs {slabs}, each uploaded once {uploads}, "
+            f"scatters {restart['next_cycle_scatters']}; equal=True")
+    return walls, sharded, restart
+
+
+def arena_counters(arenas) -> dict:
+    keys = ("packs", "full_uploads", "scatter_packs", "noop_packs",
+            "lanes_scattered")
+    return {k: sum(getattr(a, k) for a in arenas) for k in keys}
+
+
+def mesh_phase(card) -> dict:
+    """11b on the card. Returns the summary (launches per sharded group
+    included)."""
+    from workload_variant_autoscaler_tpu_torch import (
+        HierarchicalSolveEngine, IncrementalSolveEngine)
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+    from workload_variant_autoscaler_tpu_torch.ops import fused
+    from workload_variant_autoscaler_tpu_torch.ops.arena import (
+        ShardedFleetArena)
+    from workload_variant_autoscaler_tpu_torch.parallel import (
+        Mesh, decide_batch_sharded)
+
+    dev = Mesh((MESH_DEVICE,)).devices[0]
+    lane = Mesh((dev,) * MESH_SHARDS, "lanes")
+    cand = Mesh((dev,) * MESH_SHARDS, "candidates")
+    spec = build_fleet(N_VARIANTS, SEED)
+    per_group: dict = {}
+    walls = {"unsharded": [], "lanes": []}
+    for dt in (torch.float32, torch.float64):
+        system, opt = make_system(spec, MESH_DEVICE, dt)
+        _calls, groups = capture_launches(system, opt)
+        del _calls
+        for q, slo, epi, k_max, pct in groups:
+            plain = fused.decide_batch(q, slo, epi, k_max, pct)
+            for mesh in (lane, cand):
+                bk.reset_launches()
+                got = decide_batch_sharded(q, slo, epi, k_max, mesh,
+                                           ttft_percentile=pct)
+                torch.cuda.synchronize()
+                launched = {"B1": bk.launches["mean"],
+                            "B2": bk.launches["tail"]}
+                want = {"B1": MESH_SHARDS,
+                        "B2": MESH_SHARDS if pct is not None else 0}
+                form = "p95" if pct is not None else "mean"
+                if launched != want:
+                    raise AssertionError(f"11b {form} group on the "
+                                         f"{mesh.axis} mesh launched "
+                                         f"{launched}, not {want}")
+                if got.shape != plain.shape or not torch.equal(
+                        bits(got), bits(plain)):
+                    raise AssertionError(f"11b: the {str(dt)[6:]} {form} "
+                                         f"group sharded over {mesh.axis} "
+                                         "is not bit-identical")
+                per_group[form] = launched
+            if dt == torch.float32:
+                walls["unsharded"].append(statistics.median(synced_ms(
+                    lambda: fused.decide_batch(q, slo, epi, k_max, pct), 5)))
+                walls["lanes"].append(statistics.median(synced_ms(
+                    lambda: decide_batch_sharded(q, slo, epi, k_max, lane,
+                                                 ttft_percentile=pct), 5)))
+        log(f"  11b: decide_batch_sharded, {str(dt)[6:]}, "
+            f"{system.last_solve_lanes} lanes in {len(groups)} groups, "
+            f"{MESH_SHARDS}-entry lane and candidate meshes of the card: "
+            f"bit-identical to decide_batch; launches per sharded group "
+            f"{per_group}")
+        del system, groups
+    log(f"  11b: decide_batch per group (float32, median of 5, ms): "
+        f"unsharded {walls['unsharded']}, lane mesh {walls['lanes']}")
+
+    # the arena: a 2% scatter against a fresh upload, at 4096 lanes
+    system, _opt = make_system(spec, MESH_DEVICE, torch.float32)
+    rows = system._group_rows(system._candidate_pairs(), epilogue=True)
+    arena = ShardedFleetArena(lane, dtype=torch.float32)
+    arena.pack(rows, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 15)
+    churned = dict(rows, alpha=list(rows["alpha"]))
+    for i in rng.choice(len(churned["alpha"]),
+                        max(1, round(CHURN_SHARE * len(churned["alpha"]))),
+                        replace=False):
+        churned["alpha"][i] *= 1.01
+    out = arena.pack(churned, device=dev, dtype=torch.float32)
+    fresh = ShardedFleetArena(lane, dtype=torch.float32).pack(
+        churned, device=dev, dtype=torch.float32)
+    for tree_a, tree_b in zip(out, fresh):
+        for part_a, part_b in zip(tree_a, tree_b):
+            for a, b in zip(part_a, part_b):
+                if not torch.equal(a, b):
+                    raise AssertionError("11b: a scatter differs from a "
+                                         "fresh upload")
+    log(f"  11b: ShardedFleetArena at {len(rows['alpha'])} lanes: a "
+        f"{CHURN_SHARE:.0%} scatter ({arena.lanes_scattered} lanes) equals "
+        f"a fresh upload bit for bit; counters {arena_counters([arena])}")
+    del system
+
+    flat_walls, flat, _r = mesh_engines(
+        "11b flat", build_fleet(N_VARIANTS, SEED + 12), SEED + 13,
+        lambda _path: IncrementalSolveEngine(), lane)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "arena.ckpt")
+        hier_walls, hier, restart = mesh_engines(
+            "11b hierarchical", build_fleet(MESH_HIER_VARIANTS, SEED + 16),
+            SEED + 17, lambda p: HierarchicalSolveEngine(
+                checkpoint_path=p, checkpoint_every=MESH_CYCLES), lane,
+            restart_path=path)
+    flat_counts = arena_counters([flat._fleet_arena])
+    hier_counts = arena_counters(hier._shard_arenas.values())
+    log(f"  11b: arena counters after the churn: flat {flat_counts}, "
+        f"hierarchical ({len(hier._shard_arenas)} shard arenas) "
+        f"{hier_counts}")
+    steady = {
+        "flat_mesh_ms": statistics.median(flat_walls[0][1:]),
+        "flat_unsharded_ms": statistics.median(flat_walls[1][1:]),
+        "hier_mesh_ms": statistics.median(hier_walls[0][1:]),
+        "hier_unsharded_ms": statistics.median(hier_walls[1][1:]),
+    }
+    log(f"  11b: steady cycles (median of {MESH_CYCLES - 1}), ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in steady.items()))
+    return {"launches_per_sharded_group": per_group,
+            "decide_ms": walls, "steady": steady,
+            "first_cycle_ms": {"flat": [w[0] for w in flat_walls],
+                               "hier": [w[0] for w in hier_walls]},
+            "arena": {"flat": flat_counts, "hier": hier_counts},
+            "restart": restart}
+
+
+def knob_phase() -> dict:
+    """11c: the mesh knobs on this host's cards."""
+    from workload_variant_autoscaler_tpu_torch.controller import translate
+    from workload_variant_autoscaler_tpu_torch.parallel import fleet_mesh
+
+    cards = torch.cuda.device_count()
+    fm = fleet_mesh(device=MESH_DEVICE)
+    with env("WVA_SHARDED_FLEET", "on"):
+        on = translate.sharded_fleet_mesh("kernel", MESH_DEVICE)
+    if cards == 1 and (fm is not None or on is not None):
+        raise AssertionError("11c: a lane mesh on a one-card host")
+    with env("WVA_MESH_DEVICES", "1"):
+        one = translate.engine_mesh("kernel", MESH_DEVICE)
+    if one is None or one.size != 1 or one.axis != "candidates":
+        raise AssertionError(f"11c: WVA_MESH_DEVICES=1 gave {one}")
+    spec = build_fleet(N_VARIANTS, SEED)
+    lanes = []
+    for mesh in (one, None):
+        system, _opt = make_system(spec, MESH_DEVICE, torch.float32)
+        system.calculate(backend="kernel", mesh=mesh)
+        lanes.append({(n, a): (x.num_replicas, x.cost, x.itl, x.ttft, x.rho)
+                      for n, s in system.servers.items()
+                      for a, x in s.all_allocations.items()})
+    if lanes[0] != lanes[1]:
+        raise AssertionError("11c: the one-card candidate mesh decides "
+                             "differently from the default")
+    log(f"  11c: {cards} card(s): fleet_mesh() {fm}, WVA_SHARDED_FLEET=on "
+        f"-> {on} (unsharded); WVA_MESH_DEVICES=1 -> a {one.size}-device "
+        f"{one.axis} mesh, {len(lanes[0])} lanes equal to the default")
+    return {"cards": cards, "fleet_mesh": fm is not None,
+            "sharded_fleet_on": on is not None, "mesh_devices_1": one.size}
+
+
+def phase_11(card) -> dict:
+    """Phase 11 (11a-11c); the host backends' timings run in two
+    spawned workers (one per backend) beside the card's work. Returns
+    the launches per sharded group."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = {b: pool.submit(host_backend_job, b, N_VARIANTS,
+                               N_VARIANTS_F64, SEED, NATIVE_REPS)
+                for b in ("native", "scalar")}
+        t = time.perf_counter()
+        nat = native_phase(card)
+        log(f"  11a on the card took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        mesh = mesh_phase(card)
+        log(f"  11b took {time.perf_counter() - t:.1f} s")
+        knobs = knob_phase()
+        hosted = {b: job.result(timeout=600) for b, job in jobs.items()}
+    finally:
+        workers = list((pool._processes or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in workers:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=30)
+    if hosted["scalar"]["small"] != hosted["native"]["small"]:
+        raise AssertionError("11a: scalar and native decide differently "
+                             "on the 64-variant fleet")
+    times = {"native": statistics.median(hosted["native"]["walls"]),
+             "scalar": statistics.median(hosted["scalar"]["walls"]),
+             "kernel": statistics.median(nat["kernel_calculate_ms"])}
+    log(f"  11a: scalar against native on the "
+        f"{len(hosted['native']['small'])}-variant fleet (float64, CPU): "
+        f"equal decisions; calculate at {hosted['native']['lanes']} lanes "
+        f"(two workers beside the card's work), median of {NATIVE_REPS}, "
+        f"ms: native "
+        f"(host) {times['native']:.3f}, scalar (host) {times['scalar']:.3f}"
+        f", kernel (card) {times['kernel']:.3f}")
+    log(json.dumps({"phase": "11a", "card": card, "lanes": nat["lanes"],
+                    "native_build_s": nat["build_s"],
+                    "native_vs_kernel_servers_differ": 0,
+                    "ttft_rel_err": nat["ttft_rel_err"],
+                    "rate_rel_err": nat["rate_rel_err"],
+                    "scalar_vs_native_equal": True,
+                    "calculate_ms_median": times,
+                    "calculate_ms": {"native": hosted["native"]["walls"],
+                                     "scalar": hosted["scalar"]["walls"],
+                                     "kernel": nat["kernel_calculate_ms"]},
+                    "reconcile_ms": nat["reconcile_ms"],
+                    "reconcile_equal": True}))
+    log(json.dumps({"phase": "11b", "card": card, "shards": MESH_SHARDS,
+                    **mesh, "equal": True}))
+    log(json.dumps({"phase": "11c", "card": card, **knobs}))
+    return mesh["launches_per_sharded_group"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2622,6 +3071,10 @@ def main() -> int:
     from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
 
     t_start = time.perf_counter()
+    # phases 1-10 hold the card against the batched path on the CPU; the
+    # CPU's default backend is the native one, so pin it off until 11
+    pinned = contextlib.ExitStack()
+    pinned.enter_context(env("WVA_NATIVE_KERNEL", "false"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2832,6 +3285,16 @@ def main() -> int:
             form: n[row["name"]]
             for form, n in twin_launches["per_plan"].items()}
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+    pinned.close()
+
+    log("phase 11: the native and scalar backends and the device mesh")
+    gc.collect()
+    t11 = time.perf_counter()
+    per_group = phase_11(card)
+    for row in rows:
+        row["launches_per_sharded_group"] = {
+            form: n[row["name"]] for form, n in per_group.items()}
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

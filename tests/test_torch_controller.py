@@ -2,9 +2,9 @@
 
 Each part of the port's controller slice runs beside the JAX package's
 on the same inputs (made with numpy or written out), exactly:
-`translate.warmup_plan` and `ttft_percentile`; the knob warnings of
-`engine_backend` and the meshes (the port picks its backend from the
-device and runs unsharded); `collect_load` and
+`translate.warmup_plan` and `ttft_percentile`; `engine_backend`'s whole
+selection table (the System's device standing in for the reference's
+"host is CPU-only") and the knob warnings of the meshes; `collect_load` and
 `validate_metrics_availability` over a FakePromAPI; the `LoadCache`
 tiers; `ops/analyzer.py`'s scalar `QueueAnalyzer.size`/`analyze`; the
 drift watchdog's `predict_latency`; the emitter's device-audit series.
@@ -107,29 +107,47 @@ def test_pallas_knob_warns_as_reference_and_is_ignored(monkeypatch):
     assert picked == ["batched"]
 
 
-@pytest.mark.parametrize("device,backend", [("cpu", "batched"),
-                                            ("cuda", "kernel")])
-def test_backend_follows_the_device(device, backend, monkeypatch):
-    monkeypatch.delenv("WVA_PALLAS_KERNEL", raising=False)
-    monkeypatch.delenv("WVA_NATIVE_KERNEL", raising=False)
-    translate = mod(PORT, "controller.translate")
-    assert translate.engine_backend(torch.device(device)) == backend
-    assert translate.engine_backend(device) == backend
+@pytest.mark.parametrize("knob", ["unset", "true", "false"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("lib", [True, False], ids=["lib", "nolib"])
+def test_backend_follows_the_device(knob, device, lib, monkeypatch):
+    """The whole WVA_NATIVE_KERNEL table against the reference's
+    engine_backend(): the System's device stands in for its "host is
+    CPU-only", and the port's device backend ("kernel" on cuda, "batched"
+    on cpu) for its "batched". The same warnings, as many."""
+    import workload_variant_autoscaler_tpu.utils.platform as platform
 
-
-def test_native_knob_logs_kernel_unavailable_and_stays_on_device(
-        monkeypatch):
-    monkeypatch.setenv("WVA_NATIVE_KERNEL", "true")
-    monkeypatch.delenv("WVA_PALLAS_KERNEL", raising=False)
-    picked = []
-    said = warnings_of(
-        PORT, lambda t: picked.append(
-            (t.engine_backend("cpu"), t.engine_backend("cuda"))),
-        monkeypatch)
-    assert picked == [("batched", "kernel")]
-    assert len(said) == 2
+    own = "kernel" if device == "cuda" else "batched"
+    picked, said = {}, {}
+    for pkg in PKGS:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.delenv("WVA_PALLAS_KERNEL", raising=False)
+            if knob == "unset":
+                mp.delenv("WVA_NATIVE_KERNEL", raising=False)
+            else:
+                mp.setenv("WVA_NATIVE_KERNEL", knob)
+            mp.setattr(platform, "host_is_cpu_only", lambda: device == "cpu")
+            mp.setattr(platform, "host_is_tpu", lambda: False)
+            mp.setattr(mod(pkg, "ops.native"), "available", lambda: lib)
+            translate = mod(pkg, "controller.translate")
+            said[pkg] = []
+            mp.setattr(translate.log, "warning",
+                       lambda msg, *a, **k: said[pkg].append(msg))
+            if pkg == JAX:
+                picked[pkg] = translate.engine_backend()
+            else:
+                picked[pkg] = translate.engine_backend(torch.device(device))
+                n = len(said[pkg])
+                assert translate.engine_backend(device) == picked[pkg]
+                assert said[pkg][n:] == said[pkg][:n]
+                del said[pkg][n:]
+    said_j, said_p = said[JAX], said[PORT]
+    assert picked[PORT] == {"batched": own}.get(picked[JAX], picked[JAX])
+    assert picked[PORT] == ("native" if lib and (knob == "true" or (
+        knob == "unset" and device == "cpu")) else own)
+    assert len(said_p) == len(said_j) == int(knob == "true" and not lib)
     assert all(s.startswith("WVA_NATIVE_KERNEL set but kernel unavailable")
-               for s in said)
+               for s in said_p + said_j)
 
 
 @pytest.mark.parametrize("knob,value,warned", [
@@ -142,18 +160,27 @@ def test_native_knob_logs_kernel_unavailable_and_stays_on_device(
 ])
 def test_meshes_are_none_and_warn_when_asked(knob, value, warned,
                                              monkeypatch):
-    monkeypatch.delenv("WVA_MESH_DEVICES", raising=False)
-    monkeypatch.setenv("WVA_SHARDED_FLEET", "off")
-    monkeypatch.setenv(knob, value)
-    meshes = []
-    said = warnings_of(
-        PORT, lambda t: meshes.extend(
-            (t.engine_mesh(), t.sharded_fleet_mesh())),
-        monkeypatch)
-    assert meshes == [None, None]
-    assert len(said) == int(warned)
+    """The host backends take no mesh: both meshes are None for
+    "native", with the reference's warning whenever a knob asks for
+    sharding explicitly."""
+    said, meshes = {}, {}
+    for pkg in PKGS:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.delenv("WVA_MESH_DEVICES", raising=False)
+            mp.setenv("WVA_SHARDED_FLEET", "off")
+            mp.setenv(knob, value)
+            translate = mod(pkg, "controller.translate")
+            said[pkg] = []
+            mp.setattr(translate.log, "warning",
+                       lambda msg, *a, **k: said[pkg].append(msg))
+            args = ("native",) if pkg == JAX else ("native", "cpu")
+            meshes[pkg] = (translate.engine_mesh(*args),
+                           translate.sharded_fleet_mesh(*args))
+    assert meshes[PORT] == meshes[JAX] == (None, None)
+    assert len(said[PORT]) == len(said[JAX]) == int(warned)
     if warned:
-        assert knob in said[0] and "unsharded" in said[0]
+        assert said[PORT][0].startswith(f"{knob} ignored")
+        assert said[JAX][0].startswith(f"{knob} ignored")
 
 
 def test_translation_helpers_equal_reference():

@@ -530,11 +530,13 @@ def test_reconcile_on_card_equals_cpu_float64(card, monkeypatch):
     float64, then two more cycles with changed loads: every VA's
     published status and conditions, the solution it was published from
     and the ReconcileResult equal the same reconciler's on the CPU (the
-    kernels' plain versions)."""
+    kernels' plain versions; WVA_NATIVE_KERNEL=false keeps the CPU off
+    its native default)."""
     import reconcile_cluster as rc
 
     from workload_variant_autoscaler_tpu_torch.controller import translate
 
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
     c = rc.Cluster(variants=512, namespaces=8, models=512, profiles=8,
                    percentile=0.95, seed=3)
     clock = rc.Clock()
@@ -590,7 +592,7 @@ def test_warmup_raises_when_the_library_cannot_be_built(card, tmp_path,
         tk._launcher.cache_clear()
 
 
-def test_stream_rounds_on_card_equal_cpu_float64(card):
+def test_stream_rounds_on_card_equal_cpu_float64(card, monkeypatch):
     """10 streaming rounds over a 512-VA fleet (a model each, 8 slice
     shapes, half the VAs held at p95 TTFT): a StreamCore over a float64
     reconciler on the card and one on the CPU, on one injected clock,
@@ -604,6 +606,7 @@ def test_stream_rounds_on_card_equal_cpu_float64(card):
     from workload_variant_autoscaler_tpu_torch import stream
     from workload_variant_autoscaler_tpu_torch.controller import translate
 
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
     c = rc.Cluster(variants=512, namespaces=8, models=512, profiles=8,
                    percentile=0.95, seed=3)
     clock = rc.Clock()
@@ -697,7 +700,7 @@ def test_main_exits_nonzero_when_the_library_cannot_be_built(
     assert "the CUDA kernel library failed to build" in capfd.readouterr().out
 
 
-def test_twin_on_card_equals_cpu_float64(card):
+def test_twin_on_card_equals_cpu_float64(card, monkeypatch):
     """The abbreviated flash crowd through the goodput twin: the run on
     the card in float64 (the kernels) has the signature of the run on the
     CPU (the batched path): exactly for decisions, within rel 1e-9 for
@@ -711,6 +714,7 @@ def test_twin_on_card_equals_cpu_float64(card):
         abbreviated,
     )
 
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
     sc = abbreviated(SCENARIOS["flash-crowd"], 300.0)
     ref = twin.run_scenario(sc, device="cpu", dtype=torch.float64)
     tk.reset_launches()
@@ -760,3 +764,91 @@ def test_plan_on_card_equals_cpu(card):
                 else:
                     assert v == db[k], k
         assert len(ref) == len(mine)
+
+
+@pytest.mark.parametrize("axis", ["lanes", "candidates"])
+@pytest.mark.parametrize("pct", [None, 0.95])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_decide_on_card_is_bit_identical(card, axis, pct, dtype):
+    """decide_batch_sharded over a 4-entry mesh of the card gives the bits
+    of the unsharded decide_batch, and each shard launches each form of
+    the kernel once (a tail group: 4 tail and 4 mean launches)."""
+    from workload_variant_autoscaler_tpu_torch.ops import fused
+    from workload_variant_autoscaler_tpu_torch.parallel import (
+        Mesh,
+        decide_batch_sharded,
+    )
+
+    q, t, k = batch(203, seed=17, dtype=dtype, device=card)
+    rng = np.random.default_rng(18)
+    e = fused.make_epilogue_batch(rng.choice([0.0, 3.5, 40.0], 203),
+                                  rng.choice([0, 1, 2], 203),
+                                  rng.choice([20.0, 80.0], 203), dtype, card)
+    plain = fused.decide_batch(q, t, e, k, ttft_percentile=pct)
+    tk.reset_launches()
+    got = decide_batch_sharded(q, t, e, k, Mesh((card,) * 4, axis),
+                               ttft_percentile=pct)
+    if card.type == "cuda":
+        torch.cuda.synchronize()
+        assert tk.launches == {"mean": 4, "tail": 0 if pct is None else 4}
+    a, b = got.cpu().numpy(), plain.cpu().numpy()
+    assert a.shape == b.shape == (fused.N_ROWS, 203)
+    np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def test_native_backend_equals_kernel_on_card(card):
+    """A 64-variant fleet of 8 slice profiles each, half held at p95
+    TTFT, in float64: backend "native" (the host library) decides as
+    backend "kernel" on the card, and launches no kernel."""
+    from workload_variant_autoscaler_tpu_torch import Manager, Optimizer, System
+    from workload_variant_autoscaler_tpu_torch.models.chips import (
+        DEFAULT_SLICES,
+    )
+    from workload_variant_autoscaler_tpu_torch.models.spec import (
+        AllocationData, ModelSliceProfile, ModelTarget, OptimizerSpec,
+        ServerLoadSpec, ServerSpec, ServiceClassSpec, SystemSpec)
+
+    rng = np.random.default_rng(23)
+    slices = list(DEFAULT_SLICES[:8])
+    models = [f"m{i}" for i in range(64)]
+    spec = SystemSpec(
+        accelerators=slices,
+        service_classes=[
+            ServiceClassSpec(name="premium", priority=1, model_targets=tuple(
+                ModelTarget(model=m, slo_itl=24.0, slo_ttft=500.0,
+                            slo_ttft_percentile=0.95) for m in models)),
+            ServiceClassSpec(name="freemium", priority=10, model_targets=tuple(
+                ModelTarget(model=m, slo_itl=40.0, slo_ttft=2000.0)
+                for m in models))],
+        optimizer=OptimizerSpec(unlimited=True))
+    for i, m in enumerate(models):
+        for acc in slices:
+            f = rng.uniform(0.3, 1.2)
+            spec.profiles.append(ModelSliceProfile(
+                model=m, accelerator=acc.name, alpha=6.973 * f,
+                beta=0.027 * f, gamma=5.2 * f, delta=0.1 * f,
+                max_batch_size=int(rng.choice([64, 128, 256]))))
+        spec.servers.append(ServerSpec(
+            name=f"srv-{i}", model=m,
+            service_class="premium" if i % 2 == 0 else "freemium",
+            min_num_replicas=1, current_alloc=AllocationData(
+                accelerator=slices[0].name, num_replicas=1,
+                load=ServerLoadSpec(
+                    arrival_rate=float(rng.uniform(60.0, 3000.0)),
+                    avg_in_tokens=128, avg_out_tokens=128))))
+    out = {}
+    for backend, dev in (("native", card), ("kernel", card)):
+        system = System(device=dev, dtype=torch.float64)
+        opt = system.set_from_spec(spec)
+        tk.reset_launches()
+        system.calculate(backend=backend)
+        launched = dict(tk.launches)
+        Manager(system, Optimizer(opt)).optimize()
+        out[backend] = {n: (a.accelerator, a.num_replicas, a.max_batch,
+                            a.cost)
+                        for n, a in system.generate_solution()
+                        .allocations.items()}
+        if backend == "native":
+            assert launched == {"mean": 0, "tail": 0}
+    assert out["native"] == out["kernel"]
+    assert len(out["native"]) == 64

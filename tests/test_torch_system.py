@@ -195,6 +195,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import workload_variant_autoscaler_tpu_torch.ops.fused\n"
         "import workload_variant_autoscaler_tpu_torch.ops.bisect_kernel\n"
         "import workload_variant_autoscaler_tpu_torch.ops.arena\n"
+        "import workload_variant_autoscaler_tpu_torch.ops.native\n"
+        "import workload_variant_autoscaler_tpu_torch.parallel\n"
+        "import workload_variant_autoscaler_tpu_torch.parallel.mesh\n"
         "import workload_variant_autoscaler_tpu_torch.solver.greedy\n"
         "import workload_variant_autoscaler_tpu_torch.solver.incremental\n"
         "import workload_variant_autoscaler_tpu_torch.solver.hierarchy\n"

@@ -23,7 +23,10 @@ Usage:
 The process runs its engine on the device `WVA_PLATFORM` names: unset,
 empty, `cuda`, `gpu` or `ambient` is the card (startup fails without
 CUDA, or when the CUDA kernel library does not build), `cpu` the host
-(the kernels' plain PyTorch versions); any other value exits 1. The
+(the native C++ backend when it builds and WVA_NATIVE_KERNEL is not
+false, else the kernels' plain PyTorch versions); any other value exits
+1. WVA_MESH_DEVICES and WVA_SHARDED_FLEET split the solve over the
+local cards (controller/translate.py). The
 kernel library is built and loaded on the main thread before the process
 reports ready.
 
@@ -52,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import threading
@@ -392,7 +396,7 @@ def main(argv=None) -> int:
     # process whose kernels cannot build must never go ready.
     from ..ops import _build, fused
     from .reconciler import CONFIG_MAP_NAME, SERVICE_CLASS_CM_NAME
-    from .translate import warmup_plan
+    from .translate import engine_backend, engine_mesh, warmup_plan
 
     if device.type == "cuda":
         t0 = time.perf_counter()
@@ -406,10 +410,15 @@ def main(argv=None) -> int:
         log.info("kernel library loaded",
                  extra=kv(seconds=time.perf_counter() - t0))
 
-    if os.environ.get("WVA_WARMUP", "1").lower() not in ("0", "false"):
+    backend = engine_backend(device)
+    if backend in fused.BACKENDS and \
+            os.environ.get("WVA_WARMUP", "1").lower() not in ("0", "false"):
         # Launch each sizing group's shape off the critical path (while
         # Prometheus validation backs off and leader election contends),
-        # so the first reconcile runs at steady-state latency.
+        # so the first reconcile runs at steady-state latency. The
+        # native host backend has nothing to warm.
+        mesh = engine_mesh(backend, device)
+        mesh_size = mesh.size if mesh is not None else None
 
         def _cm_data(name: str) -> dict:
             try:
@@ -428,6 +437,7 @@ def main(argv=None) -> int:
                     kube.list_variant_autoscalings(),
                     service_class_cm=_cm_data(SERVICE_CLASS_CM_NAME),
                     operator_cm=_cm_data(CONFIG_MAP_NAME),
+                    mesh_size=mesh_size,
                 )
             except Exception:  # noqa: BLE001
                 # apiserver unreachable: the env-only percentile is
@@ -435,14 +445,15 @@ def main(argv=None) -> int:
                 # tail form, not the mean one
                 from .translate import ttft_percentile as _global_pct
 
-                plan = [(16,
+                plan = [(16 if mesh_size is None else math.lcm(16, mesh_size),
                          int(os.environ.get("WVA_WARMUP_MAX_BATCH", "256")),
                          _global_pct(None))]
             failures = 0
             for bucket, max_batch, pct in plan:
                 try:
                     fused.warmup(max_batch=max_batch, bucket=bucket,
-                                 ttft_percentile=pct, device=device)
+                                 ttft_percentile=pct, device=device,
+                                 mesh=mesh)
                 except Exception as e:  # noqa: BLE001 — counted, logged
                     failures += 1
                     log.error("engine warmup launch failed",
@@ -451,6 +462,7 @@ def main(argv=None) -> int:
             log.info("engine kernels warmed",
                      extra=kv(failures=failures, device=str(device),
                               seconds=time.perf_counter() - t0,
+                              sharded=mesh is not None,
                               groups=[
                                   {"lanes": b, "max_batch": m,
                                    "ttft_percentile": p}

@@ -14,8 +14,10 @@ kernels of ops/bisect_kernel.py, on `cpu` as the PyTorch trip loop.
 `Reconciler(..., device=None, dtype=None)` runs on the card unless the
 caller passes `device="cpu"`; with no device given and no CUDA present it
 raises. The solve engine comes from a `SolveEngineSelector` (the
-WVA_INCREMENTAL_SOLVE / WVA_HIER_SOLVE knobs). The port runs unsharded
-(no mesh). With WVA_STREAM on (the default) `run_forever` hands the loop
+WVA_INCREMENTAL_SOLVE / WVA_HIER_SOLVE knobs); the backend and the
+device meshes come from controller/translate.py (WVA_NATIVE_KERNEL,
+WVA_MESH_DEVICES, WVA_SHARDED_FLEET). With WVA_STREAM on (the default)
+`run_forever` hands the loop
 to the streaming core (stream/core.py), whose scoped micro-cycles call
 `reconcile(scope=..., stream_loads=...)`.
 """
@@ -995,10 +997,9 @@ class Reconciler:
                 if limited else {})
         engine_backend = translate.engine_backend(system.device)
         ttft_percentile = translate.ttft_percentile(operator_cm)
-        # the port runs unsharded: both meshes are None (each warns when
-        # its knob asks for sharding)
-        translate.engine_mesh()
-        translate.sharded_fleet_mesh()
+        engine_mesh = translate.engine_mesh(engine_backend, system.device)
+        fleet_mesh = translate.sharded_fleet_mesh(engine_backend,
+                                                  system.device)
         # scoped micro-cycles bypass the incremental engine (its caches
         # describe the FULL fleet; a scoped pass must not advance or
         # prune them) and solve the event's sub-batch directly, through
@@ -1016,10 +1017,12 @@ class Reconciler:
                 epsilon = DEFAULT_EPSILON
             for server in system.servers.values():
                 server.load = quantize_load(server.load, epsilon)
-            system.arena = self.state.stream_arena
+            if engine_mesh is None:
+                system.arena = self.state.stream_arena
         if solve_engine is not None:
             stats = solve_engine.calculate(
-                system, backend=engine_backend,
+                system, backend=engine_backend, mesh=engine_mesh,
+                fleet_mesh=fleet_mesh,
                 ttft_percentile=ttft_percentile,
                 optimizer_spec=optimizer_spec,
                 rungs=dict(result.degraded),
@@ -1031,8 +1034,11 @@ class Reconciler:
                 self.emitter.emit_hier_solve(
                     stats.shards, solve_engine.drain_ckpt_events())
         else:
+            # scoped micro-cycles stay unsharded: their sub-batches are
+            # tiny and the stream arena is resident on one device
             system.calculate(
                 backend=engine_backend,
+                mesh=engine_mesh or (fleet_mesh if scope is None else None),
                 ttft_percentile=ttft_percentile)
             solve_modes = dict.fromkeys(system.servers, SOLVE_FULL)
             self.emitter.emit_solve_metrics(

@@ -10,6 +10,7 @@ and capacity is counted in chips per generation.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import time
@@ -33,6 +34,7 @@ from ..models import (
 from ..models.chips import CHIP_CATALOG
 from ..models.spec import AllocationSolution, resolve_for_context
 from ..ops.arena import LANE_BUCKET
+from ..ops.fused import BACKENDS as DEVICE_BACKENDS
 from ..utils import full_name, get_logger, kv, parse_float_or
 from . import crd
 
@@ -304,6 +306,7 @@ def _warmup_max_batch(va, ap) -> int:
 def warmup_plan(
     vas, service_class_cm: dict[str, str] | None = None,
     operator_cm: dict[str, str] | None = None,
+    mesh_size: int | None = None,
 ) -> list[tuple[int, int, float | None]]:
     """The kernel shapes the fleet will actually compile, derived from
     the listed VariantAutoscalings + the service-class/operator config:
@@ -313,14 +316,16 @@ def warmup_plan(
     Mirrors System.calculate's grouping: candidates are GROUPED by their
     effective TTFT percentile (the class's slo-ttft-percentile, else the
     global WVA_TTFT_PERCENTILE, else mean), each group's candidate axis
-    is padded to a multiple of the arena's lane quantum (16), and each
-    group takes ONE K from its own maximum max-batch. Profiles without a
+    is padded to a multiple of the arena's lane quantum (16), or of
+    lcm(16, mesh size) under WVA_MESH_DEVICES, and each group takes ONE
+    K from its own maximum max-batch. Profiles without a
     batch bound warm the 256 default instead of guessing; VAs whose
     class can't be resolved warm in the global-percentile group."""
     global_p = ttft_percentile(operator_cm) or 0.0
     spec = create_system_data({}, service_class_cm or {})
     class_by_key = service_class_key_names(service_class_cm or {})
-    quantum = LANE_BUCKET
+    quantum = (LANE_BUCKET if not mesh_size
+               else math.lcm(LANE_BUCKET, mesh_size))
 
     groups: dict[float, dict] = {}
     for va in vas:
@@ -387,51 +392,110 @@ def ttft_percentile(operator_cm: dict[str, str] | None = None) -> float | None:
 
 
 def engine_backend(device) -> str:
-    """Analysis backend for the reconcile cycle: the System's device
-    decides. "kernel" (the CUDA bisection kernels) on `cuda`, "batched"
-    (the PyTorch trip loop) on `cpu` — the two backends of
-    ops/fused.BACKENDS.
+    """Analysis backend for the reconcile cycle, by the reference
+    package's table with the System's device standing in for its "host
+    is CPU-only": "kernel" (the CUDA bisection kernels) is the device's
+    backend on `cuda`, "batched" (the PyTorch trip loop) on `cpu`.
 
-    WVA_PALLAS_KERNEL=true is warned about and ignored, exactly as the
-    reference package does on a non-TPU host. WVA_NATIVE_KERNEL=true logs
-    the reference package's "kernel unavailable" warning: the C++ host
-    kernel is not part of the port, and the cycle stays on the device's
-    backend."""
+    WVA_NATIVE_KERNEL=true  -> "native", the C++ host library
+      (ops/native.py), on either device; with a warning and the device's
+      backend when it cannot be built;
+    WVA_NATIVE_KERNEL=false -> the device's backend, unconditionally;
+    unset (the default)     -> "native" on `cpu` when the library
+      builds (on the host it beats the trip loop), else the device's
+      backend; "kernel" on `cuda`.
+    WVA_PALLAS_KERNEL=true is warned about and ignored, as the reference
+    package does on a non-TPU host."""
+    from ..ops import native
+
+    dev = torch.device(device)
+    own = "kernel" if dev.type == "cuda" else "batched"
     if os.environ.get("WVA_PALLAS_KERNEL", "").strip().lower() in ("1", "true"):
         log.warning("WVA_PALLAS_KERNEL set on a non-TPU host; Mosaic "
                     "kernels need a TPU (interpret mode would be slower "
                     "than the other backends) — selecting as if unset")
-    if os.environ.get("WVA_NATIVE_KERNEL", "").strip().lower() in ("1", "true"):
+    raw = os.environ.get("WVA_NATIVE_KERNEL", "").strip().lower()
+    if raw in ("1", "true"):
+        if native.available():
+            return "native"
         log.warning("WVA_NATIVE_KERNEL set but kernel unavailable; "
-                    "running on the device's backend")
-    return "kernel" if torch.device(device).type == "cuda" else "batched"
+                    "falling back to the device's backend",
+                    extra=kv(backend=own))
+        return own
+    if raw in ("0", "false"):
+        return own
+    if dev.type == "cpu" and native.available():
+        return "native"
+    return own
 
 
-def _warn_unsharded(knob: str, value: str) -> None:
-    log.warning(f"{knob} ignored: the port runs unsharded until its mesh "
-                "slice (ROADMAP Queue A item 6)", extra=kv(value=value))
-
-
-def engine_mesh():
-    """Candidate-axis device mesh (WVA_MESH_DEVICES in the reference
-    package). The port runs unsharded: always None, with a warning when
-    the knob is set. On one card the unsharded program gives the same
-    decisions as a mesh of one device."""
+def engine_mesh(backend: str, device=None):
+    """Optional candidate-axis device mesh from WVA_MESH_DEVICES ("all" or
+    a device count): splits each sizing group over the local devices of
+    `device`'s type (parallel.candidate_mesh; the cards on `cuda`, the
+    default, the one host on `cpu`). None (the default) keeps the
+    single-device path. Only meaningful for a device backend ("kernel"
+    or "batched"); ignored, with a warning, otherwise."""
     raw = os.environ.get("WVA_MESH_DEVICES", "").strip()
-    if raw:
-        _warn_unsharded("WVA_MESH_DEVICES", raw)
-    return None
+    if not raw:
+        return None
+    if backend not in DEVICE_BACKENDS:
+        log.warning("WVA_MESH_DEVICES ignored: mesh sharding requires a "
+                    "device backend (kernel or batched)",
+                    extra=kv(backend=backend))
+        return None
+    from ..parallel import candidate_mesh
+
+    if raw.lower() == "all":
+        return candidate_mesh(device=device)
+    try:
+        n = int(raw)
+    except ValueError:
+        log.warning("bad WVA_MESH_DEVICES, ignoring", extra=kv(value=raw))
+        return None
+    if n <= 0:
+        log.warning("bad WVA_MESH_DEVICES, ignoring", extra=kv(value=raw))
+        return None
+    return candidate_mesh(n, device=device)
 
 
-def sharded_fleet_mesh():
-    """Variant/lane-axis fleet mesh (WVA_SHARDED_FLEET in the reference
-    package, default "auto", which degenerates to the unsharded program
-    on one device). Always None in the port, with a warning when the
-    knob asks for sharding."""
+def sharded_fleet_mesh(backend: str, device=None):
+    """Optional variant/lane-axis device mesh for whole-fleet solves.
+
+    WVA_SHARDED_FLEET: "auto" (default: shard when more than one local
+    device exists), "on" (shard; still degenerates to the unsharded
+    program on a one-device host, such as one H100), or "off".
+    WVA_FLEET_MESH_DEVICES ("all" default, or a device count) bounds the
+    mesh size. Only meaningful for a device backend ("kernel" or
+    "batched"); ignored, with a warning, otherwise."""
     raw = os.environ.get("WVA_SHARDED_FLEET", "auto").strip().lower()
-    if raw in ("on", "1", "true", "yes"):
-        _warn_unsharded("WVA_SHARDED_FLEET", raw)
-    return None
+    if raw in ("", "off", "0", "false", "no"):
+        return None
+    if raw not in ("on", "1", "true", "yes", "auto"):
+        log.warning("bad WVA_SHARDED_FLEET, ignoring", extra=kv(value=raw))
+        return None
+    if backend not in DEVICE_BACKENDS:
+        if raw != "auto":
+            log.warning("WVA_SHARDED_FLEET ignored: fleet sharding "
+                        "requires a device backend (kernel or batched)",
+                        extra=kv(backend=backend))
+        return None
+    from ..parallel import fleet_mesh
+
+    size = os.environ.get("WVA_FLEET_MESH_DEVICES", "all").strip().lower()
+    n = None
+    if size and size != "all":
+        try:
+            n = int(size)
+        except ValueError:
+            n = 0
+        if n <= 0:
+            log.warning("bad WVA_FLEET_MESH_DEVICES, ignoring",
+                        extra=kv(value=size))
+            n = None
+    # fleet_mesh returns None below two devices: "auto" and "on" both
+    # degenerate to the unsharded program on a one-device host
+    return fleet_mesh(n, device=device)
 
 
 def add_server_info_to_system_data(

@@ -1,18 +1,31 @@
 """Allocation: a feasible (slice shape, replicas, batch) assignment.
 
-Copies of the reference package's `models/allocation.py` pieces that the
-analyze + optimize path reads (the Go reference's pkg/core/allocation.go).
-The scalar per-candidate `create_allocation` waits for the scalar
-backend; `System.calculate` sizes every candidate in one batched call.
+Counterpart of the reference package's `models/allocation.py` (the Go
+reference's pkg/core/allocation.go). `create_allocation` builds an
+SLO-feasible allocation for one server on one slice shape on the host
+(the scalar backend, `System.calculate(backend="scalar")`, and the
+per-candidate specification); the device backends size every candidate
+of a group in one decision instead.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Optional
 
+from ..ops.analyzer import (
+    InfeasibleTargetError,
+    QueueAnalyzer,
+    QueueConfig,
+    RequestSize,
+    ServiceParms,
+    TargetPerf,
+)
 from .spec import (
     ACCEL_PENALTY_FACTOR,
+    MAX_QUEUE_TO_BATCH_RATIO,
     AllocationData,
     ModelSliceProfile,
     ServerLoadSpec,
@@ -21,6 +34,20 @@ from .spec import (
 
 if TYPE_CHECKING:
     from .system import System
+
+
+def _analyzer_class():
+    """The scalar path's analyzer: the native host library whenever it
+    builds (ops/native.py, exact parity with the numpy analyzer), since
+    this path is per-candidate host work where it always wins; only an
+    explicit WVA_NATIVE_KERNEL=false keeps the numpy analyzer."""
+    if os.environ.get("WVA_NATIVE_KERNEL", "").strip().lower() not in (
+            "0", "false"):
+        from ..ops import native
+
+        if native.available():
+            return native.NativeQueueAnalyzer
+    return QueueAnalyzer
 
 
 @dataclass
@@ -166,3 +193,122 @@ def zero_load_allocation(
     )
     alloc.value = alloc.cost
     return alloc
+
+
+def create_allocation(system: "System", server_name: str, acc_name: str,
+                      ttft_percentile: Optional[float] = None) -> Optional[Allocation]:
+    """Scalar-path allocation construction (the Go reference's
+    allocation.go:27-163).
+
+    Returns None when the candidate is infeasible: missing profile/target,
+    invalid load, or SLO below the achievable region.
+
+    ttft_percentile: the GLOBAL percentile knob; the service class's own
+    slo-ttft-percentile overrides it (the effective-percentile rule of
+    System's sizing groups).
+    """
+    acc = system.accelerator(acc_name)
+    server = system.server(server_name)
+    if acc is None or server is None:
+        return None
+    load = server.load
+    if load is None or load.arrival_rate < 0 or load.avg_in_tokens < 0 or load.avg_out_tokens < 0:
+        return None
+    model = system.model(server.model_name)
+    if model is None:
+        return None
+    profile = model.profile(acc_name)
+    if profile is None:
+        return None
+    # long context is a profile dimension: pick the coefficients fitted at
+    # the observed average prompt length
+    profile = resolve_for_context(profile, load.avg_in_tokens)
+    svc = system.service_class(server.service_class_name)
+    if svc is None:
+        return None
+    target = svc.target(server.model_name)
+    if target is None:
+        return None
+
+    if load.arrival_rate == 0 or load.avg_out_tokens == 0:
+        return zero_load_allocation(system, server_name, acc_name)
+
+    out_tokens = load.avg_out_tokens
+    n = effective_batch_size(profile, server.max_batch_size, out_tokens)
+
+    try:
+        analyzer = _analyzer_class()(
+            QueueConfig(
+                max_batch_size=n,
+                max_queue_size=n * MAX_QUEUE_TO_BATCH_RATIO,
+                parms=ServiceParms(
+                    alpha=profile.alpha, beta=profile.beta,
+                    gamma=profile.gamma, delta=profile.delta,
+                ),
+            ),
+            RequestSize(avg_input_tokens=load.avg_in_tokens, avg_output_tokens=out_tokens),
+        )
+        effective_pct = target.slo_ttft_percentile or ttft_percentile
+        sized = analyzer.size(
+            TargetPerf(ttft=target.slo_ttft, itl=target.slo_itl, tps=target.slo_tps),
+            ttft_percentile=effective_pct or None,
+        )
+    except (ValueError, InfeasibleTargetError):
+        return None
+
+    rate_star = sized.metrics.throughput  # req/sec per replica at the SLO
+    total_rate = replica_demand(load.arrival_rate, target.slo_tps, out_tokens)
+    num_replicas = max(math.ceil(total_rate / rate_star), server.min_num_replicas)
+
+    cost = acc.cost * model.num_instances(acc_name) * num_replicas
+
+    try:
+        per_replica = analyzer.analyze(total_rate / num_replicas)
+    except ValueError:
+        return None
+
+    alloc = Allocation(
+        accelerator=acc_name,
+        num_replicas=num_replicas,
+        batch_size=n,
+        cost=cost,
+        itl=per_replica.avg_token_time,
+        ttft=per_replica.avg_wait_time + per_replica.avg_prefill_time,
+        rho=per_replica.rho,
+        max_arrv_rate_per_replica=rate_star / 1000.0,
+    )
+    alloc.value = alloc.cost
+    return alloc
+
+
+def scale_allocation(
+    system: "System", alloc: Allocation, server_name: str,
+    ttft_percentile: Optional[float] = None,
+) -> tuple[Optional[Allocation], int]:
+    """Recompute this server's allocation on the same slice shape; returns
+    (new allocation, replica delta). The Go reference's
+    allocation.go:166-189, with its nil-deref on an infeasible recompute
+    fixed. The global ttft_percentile knob is threaded through, or a
+    percentile-sized allocation would be recomputed on the laxer mean."""
+    new = create_allocation(system, server_name, alloc.accelerator,
+                            ttft_percentile=ttft_percentile)
+    if new is None:
+        return None, 0
+    return new, new.num_replicas - alloc.num_replicas
+
+
+def reallocate(
+    system: "System", server_name: str,
+    ttft_percentile: Optional[float] = None,
+) -> tuple[Optional[Allocation], str]:
+    """Pick the min-value allocation across all slice shapes (the Go
+    reference's allocation.go:191-207)."""
+    best: Optional[Allocation] = None
+    for acc_name in system.accelerators:
+        alloc = create_allocation(system, server_name, acc_name,
+                                  ttft_percentile=ttft_percentile)
+        if alloc is not None and (best is None or alloc.value < best.value):
+            best = alloc
+    if best is None:
+        return None, ""
+    return best, best.accelerator

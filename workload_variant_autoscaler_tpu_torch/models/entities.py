@@ -205,6 +205,22 @@ class Server:
                 return {cur: accelerators[cur]} if cur in accelerators else {}
         return accelerators
 
+    def calculate(self, system: "System",
+                  ttft_percentile: Optional[float] = None) -> None:
+        """Scalar-path candidate computation (the Go reference's
+        server.go:55-67): `System.calculate(backend="scalar")` runs it for
+        every server; the other backends size the candidates in batches."""
+        from .allocation import create_allocation
+
+        self.all_allocations = {}
+        for g_name in self.candidate_accelerators(system.accelerators):
+            alloc = create_allocation(system, self.name, g_name,
+                                      ttft_percentile=ttft_percentile)
+            if alloc is not None:
+                if self.cur_allocation is not None:
+                    alloc.value = self.cur_allocation.transition_penalty(alloc)
+                self.all_allocations[g_name] = alloc
+
     def set_allocation(self, alloc: Optional[Allocation]) -> None:
         self.allocation = alloc
         self.update_desired_alloc()

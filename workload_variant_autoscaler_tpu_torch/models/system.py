@@ -3,10 +3,13 @@
 Counterpart of the reference package's `models/system.py`: every
 (server, slice-shape) candidate of the fleet is sized in one decision
 per sizing group (`ops/fused.py decide_batch`), on the device the System
-was built for, with one readback of the packed result per group. The
-staged path (WVA_FUSED_SOLVE=off) sizes, counts replicas on the host and
-re-analyzes in separate steps; it is the fused decision's exactness
-reference.
+was built for (or split over a device mesh, parallel/), with one
+readback of the packed result per group. The staged path
+(WVA_FUSED_SOLVE=off) sizes, counts replicas on the host and re-analyzes
+in separate steps; it is the fused decision's exactness reference. The
+host backends size on the CPU whatever the System's device: "native"
+through the C++ library of ops/native.py, "scalar" one candidate at a
+time through `create_allocation`.
 """
 
 from __future__ import annotations
@@ -21,7 +24,22 @@ import torch
 
 from ..ops import fused
 from ..ops.arena import CandidateArena
-from ..ops.batched import analyze_batch, k_max_bucket, k_max_for
+from ..ops.batched import (
+    SLOTargets,
+    analyze_batch,
+    k_max_bucket,
+    k_max_for,
+    make_queue_batch,
+)
+from ..parallel.mesh import (
+    Shards,
+    analyze_batch_sharded,
+    decide_batch_sharded,
+    gather,
+    is_lane_mesh,
+    pad_to_multiple,
+    size_batch_sharded,
+)
 from ..utils.device import readback, resolve_device, resolve_dtype
 from .allocation import (
     Allocation,
@@ -41,6 +59,11 @@ from .spec import (
     SystemSpec,
     resolve_for_context,
 )
+
+
+# every backend System.calculate takes: the device backends of
+# ops/fused.py, then the two host backends
+BACKENDS = fused.BACKENDS + ("scalar", "native")
 
 
 def fused_solve_enabled() -> bool:
@@ -89,12 +112,14 @@ class System:
         self.allocation_solution: Optional[AllocationSolution] = None
         # resident packing buffers of the sizing groups (ops/arena.py);
         # the incremental engine attaches its own, which outlives the
-        # per-cycle System
+        # per-cycle System (a ShardedFleetArena on a lane mesh, or None
+        # on a candidate mesh: those groups pack without an arena)
         self.arena = CandidateArena()
         # candidate lanes examined by the LAST calculate() call (kernel
         # lanes + zero-load allocations), and the distinct lanes it sized
         # after identical-lane dedup (_dedup_rows; all of them on the
-        # staged path)
+        # staged path). Counted from the candidates, never from packed
+        # batches: padding (global or per shard) stays invisible
         self.last_solve_lanes = 0
         self.last_unique_lanes = 0
 
@@ -163,7 +188,7 @@ class System:
 
     # -- candidate analysis ---------------------------------------------
 
-    def calculate(self, backend: str = "kernel",
+    def calculate(self, backend: str = "kernel", mesh=None,
                   ttft_percentile: float | None = None,
                   only: Optional[set] = None) -> None:
         """Compute candidate allocations for every server.
@@ -171,23 +196,44 @@ class System:
         backend="kernel": the bisection runs in the CUDA kernels
         (ops/bisect_kernel.py; on a CPU System, their plain versions).
         backend="batched": the bisection runs as the PyTorch trip loop.
+        backend="native": every sized candidate through the C++ host
+        library (ops/native.py), one FFI call per sizing group, then a
+        per-replica re-analysis per feasible candidate, on the host.
+        backend="scalar": per candidate through `create_allocation` (the
+        reference semantics, for cross-checking), on the host.
+        mesh: an optional parallel.Mesh (the device backends only): a
+        candidate mesh splits each group over its devices, a lane mesh
+        does so with per-shard padding (parallel/mesh.py).
         ttft_percentile: size the TTFT SLO against this percentile of
         the TTFT distribution instead of its mean, for service classes
-        without their own slo-ttft-percentile.
+        without their own slo-ttft-percentile (every backend).
         only: restrict candidate computation to these server names,
         leaving every other server's all_allocations untouched (the
         incremental engine sizes its changed sub-batch through here).
         """
-        if backend not in fused.BACKENDS:
+        if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
-                             f"{fused.BACKENDS}")
+                             f"{BACKENDS}")
+        if mesh is not None and backend not in fused.BACKENDS:
+            raise ValueError(f"mesh sharding requires a device backend "
+                             f"{fused.BACKENDS}, not {backend!r}")
         self.last_solve_lanes = 0
         self.last_unique_lanes = 0
         for acc in self.accelerators.values():
             acc.calculate()
+        if backend == "scalar":
+            for server in self.servers.values():
+                if only is not None and server.name not in only:
+                    continue
+                server.calculate(self, ttft_percentile=ttft_percentile)
+                self.last_solve_lanes += len(server.all_allocations)
+            return
+        if backend == "native":
+            self._calculate_native(ttft_percentile=ttft_percentile, only=only)
+            return
         pairs = self._candidate_pairs(only=only)
         for p, group in _percentile_groups(pairs, ttft_percentile).items():
-            self._size_group(group, backend=backend,
+            self._size_group(group, backend=backend, mesh=mesh,
                              ttft_percentile=(p or None))
 
     def _candidate_pairs(self, only: Optional[set] = None):
@@ -232,13 +278,13 @@ class System:
             alloc.value = server.cur_allocation.transition_penalty(alloc)
         server.all_allocations[acc_name] = alloc
 
-    def _size_group(self, pairs, backend: str,
+    def _size_group(self, pairs, backend: str, mesh,
                     ttft_percentile: float | None) -> None:
         if fused_solve_enabled():
-            self._size_group_fused(pairs, backend=backend,
+            self._size_group_fused(pairs, backend=backend, mesh=mesh,
                                    ttft_percentile=ttft_percentile)
         else:
-            self._size_group_staged(pairs, backend=backend,
+            self._size_group_staged(pairs, backend=backend, mesh=mesh,
                                     ttft_percentile=ttft_percentile)
 
     def _group_rows(self, pairs, epilogue: bool) -> dict[str, list]:
@@ -274,10 +320,47 @@ class System:
                     * self.models[server.model_name].num_instances(acc_name))
         return rows
 
-    def _pack_group(self, rows):
-        """Device-ready (q, slo, epi|None) for one group, padded to the
-        arena's lane bucket on the System's device in its dtype."""
-        return self.arena.pack(rows, device=self.device, dtype=self.dtype)
+    def _pack_group(self, rows, bucket: int = 16, mesh=None):
+        """Device-ready (q, slo, epi|None) for one group on the System's
+        device in its dtype: the resident arena's pack when one is
+        attached for this mesh (a plain arena serves unsharded packs, a
+        ShardedFleetArena the packs of its own lane mesh), else the list
+        path (make_queue_batch padded with pad_to_multiple, per shard on
+        a lane mesh), whose tensors are bit-identical to an arena's."""
+        if self.arena is not None:
+            arena_mesh = getattr(self.arena, "mesh", None)
+            if (mesh is None and arena_mesh is None) or (
+                    arena_mesh is not None and arena_mesh == mesh):
+                return self.arena.pack(rows, quantum=bucket,
+                                       device=self.device, dtype=self.dtype)
+        q = make_queue_batch(rows["alpha"], rows["beta"], rows["gamma"],
+                             rows["delta"], rows["in_tokens"],
+                             rows["out_tokens"], rows["max_batch"],
+                             dtype=self.dtype, device=self.device)
+
+        def f(name):
+            return torch.as_tensor(np.asarray(rows[name], dtype=np.float64),
+                                   dtype=self.dtype, device=self.device)
+
+        slo = SLOTargets(ttft=f("ttft"), itl=f("itl"), tps=f("tps"))
+        shards = mesh.size if is_lane_mesh(mesh) else 1
+        q, slo, _ = pad_to_multiple(q, slo, bucket, shards=shards)
+        epi = None
+        if "demand" in rows:
+            epi = fused.make_epilogue_batch(
+                rows["demand"], rows["min_replicas"], rows["cost_rate"],
+                self.dtype, self.device, pad_to=q.batch_size)
+        return q, slo, epi
+
+    @staticmethod
+    def _group_bucket(mesh) -> int:
+        """The candidate-axis quantum of a group: 16 lanes, so adding or
+        removing a variant changes the shape only at a 16-lane boundary;
+        lcm(16, n) on an n-device candidate mesh. A lane mesh keeps 16:
+        its padding lands per shard (parallel.padded_lanes)."""
+        if mesh is None or is_lane_mesh(mesh):
+            return 16
+        return math.lcm(16, mesh.size)
 
     # the columns that fully determine a lane's result (occupancy derives
     # from max_batch; the group's percentile is shared)
@@ -307,23 +390,32 @@ class System:
                    for name, col in rows.items()}
         return deduped, lane_of
 
-    def _size_group_fused(self, pairs, backend: str = "kernel",
+    def _size_group_fused(self, pairs, backend: str = "kernel", mesh=None,
                           ttft_percentile: float | None = None) -> None:
-        """One decision per sizing group (ops/fused.py decide_batch):
-        size -> replica-count -> re-analyze -> value on the device, ONE
-        readback of the packed result, allocations materialized for the
-        feasible lanes only. Identical candidate lanes are solved once."""
+        """One decision per sizing group (ops/fused.py decide_batch, or
+        parallel.decide_batch_sharded on a mesh): size -> replica-count
+        -> re-analyze -> value on the device, ONE readback of the packed
+        result, allocations materialized for the feasible lanes only.
+        Identical candidate lanes are solved once."""
         all_rows = self._group_rows(pairs, epilogue=True)
         n_eff = all_rows["max_batch"]
         rows, lane_of = self._dedup_rows(all_rows)
         self.last_unique_lanes += len(rows["alpha"])
         # K bucketed for shape stability under load drift (see k_max_bucket)
         k_max = k_max_bucket(k_max_for(rows["max_batch"]))
-        q, slo, epi = self._pack_group(rows)
-        packed = fused.decide_batch(q, slo, epi, k_max,
-                                    ttft_percentile=ttft_percentile,
-                                    backend=backend)
-        rows_h = readback(packed).tolist()
+        q, slo, epi = self._pack_group(rows, self._group_bucket(mesh), mesh)
+        if mesh is not None:
+            packed = decide_batch_sharded(q, slo, epi, k_max, mesh,
+                                          ttft_percentile=ttft_percentile,
+                                          backend=backend)
+        else:
+            packed = fused.decide_batch(q, slo, epi, k_max,
+                                        ttft_percentile=ttft_percentile,
+                                        backend=backend)
+        # on a lane mesh the one readback is also the gather of the
+        # sharded result, tallied per shard count
+        rows_h = readback(packed, shards=(
+            mesh.size if is_lane_mesh(mesh) else 1)).tolist()
         feasible = rows_h[fused.ROW_FEASIBLE]
         replicas = rows_h[fused.ROW_REPLICAS]
         costs = rows_h[fused.ROW_COST]
@@ -348,7 +440,7 @@ class System:
             alloc.value = alloc.cost
             self._value_and_store(server, acc_name, alloc)
 
-    def _size_group_staged(self, pairs, backend: str = "kernel",
+    def _size_group_staged(self, pairs, backend: str = "kernel", mesh=None,
                            ttft_percentile: float | None = None) -> None:
         """The staged path (WVA_FUSED_SOLVE=off): sizing, the replica
         count as a host loop, then the per-replica re-analysis, with one
@@ -359,9 +451,14 @@ class System:
         self.last_unique_lanes += len(n_eff)     # no dedup on this path
         # K bucketed for shape stability under load drift (see k_max_bucket)
         k_max = k_max_bucket(k_max_for(n_eff))
-        q, slo, _epi = self._pack_group(rows)
-        dtype = q.alpha.dtype
-        sized = fused.size_stage(q, slo, k_max, ttft_percentile, backend)
+        q, slo, _epi = self._pack_group(rows, self._group_bucket(mesh), mesh)
+        dtype = self.dtype
+        if mesh is not None:
+            sized = size_batch_sharded(q, slo, k_max, mesh,
+                                       ttft_percentile=ttft_percentile,
+                                       backend=backend)
+        else:
+            sized = fused.size_stage(q, slo, k_max, ttft_percentile, backend)
         feasible, rate_star = readback(torch.stack(
             [sized.feasible.to(dtype), sized.throughput]))
         rate_star = rate_star * 1000.0  # req/sec per replica
@@ -381,10 +478,16 @@ class System:
             )
             per_replica_rate[i] = total / num_replicas[i]
 
-        per_rep = analyze_batch(q, per_replica_rate, k_max)
+        if mesh is not None:
+            per_rep = analyze_batch_sharded(q, per_replica_rate, k_max, mesh)
+        else:
+            per_rep = analyze_batch(q, per_replica_rate, k_max)
+        max_batch = (gather([p.max_batch for p in q], mesh)
+                     if isinstance(q, Shards) else q.max_batch)
         itl_a, ttft_a, rho_a, rate_ok, max_batch_a = readback(torch.stack([
             per_rep["avg_token_time"], per_rep["ttft"], per_rep["rho"],
-            per_rep["valid_rate"].to(dtype), q.max_batch.to(dtype)]))
+            per_rep["valid_rate"].to(dtype),
+            max_batch.to(per_rep["ttft"].device, dtype)]))
 
         for i, (server, acc_name, profile, target) in enumerate(pairs):
             if not feasible[i] or num_replicas[i] <= 0 or not rate_ok[i]:
@@ -401,6 +504,89 @@ class System:
                 ttft=float(ttft_a[i]),
                 rho=float(rho_a[i]),
                 max_arrv_rate_per_replica=float(rate_star[i]) / 1000.0,
+            )
+            alloc.value = alloc.cost
+            self._value_and_store(server, acc_name, alloc)
+
+    def _calculate_native(self, ttft_percentile: float | None = None,
+                          only: Optional[set] = None) -> None:
+        """All sized candidates through the C++ host library: one FFI call
+        per sizing group (per effective TTFT percentile, as the device
+        backends group), then a per-replica re-analysis per feasible
+        candidate on the host (a native solve is ~0.1 ms)."""
+        from ..ops import native
+
+        if not native.available():
+            raise RuntimeError(
+                "native queueing kernel unavailable (no g++/.so); "
+                "use backend='kernel', 'batched' or 'scalar'"
+            )
+        pairs = self._candidate_pairs(only=only)
+        if not pairs:
+            return
+        for p, group in _percentile_groups(pairs, ttft_percentile).items():
+            self._native_size_group(group, ttft_percentile=(p or None))
+
+    def _native_size_group(self, pairs,
+                           ttft_percentile: float | None = None) -> None:
+        from ..ops import native
+        from ..ops.analyzer import QueueConfig, RequestSize, ServiceParms
+        from ..ops.queueing import MAX_QUEUE_TO_BATCH_RATIO
+
+        n_eff = [
+            effective_batch_size(profile, server.max_batch_size,
+                                 server.load.avg_out_tokens)
+            for server, _acc, profile, _t in pairs
+        ]
+        out, feasible = native.size_batch_native(
+            [p.alpha for _s, _a, p, _t in pairs],
+            [p.beta for _s, _a, p, _t in pairs],
+            [p.gamma for _s, _a, p, _t in pairs],
+            [p.delta for _s, _a, p, _t in pairs],
+            [s.load.avg_in_tokens for s, _a, _p, _t in pairs],
+            [s.load.avg_out_tokens for s, _a, _p, _t in pairs],
+            n_eff,
+            [(1 + MAX_QUEUE_TO_BATCH_RATIO) * n for n in n_eff],
+            [t.slo_ttft for _s, _a, _p, t in pairs],
+            [t.slo_itl for _s, _a, _p, t in pairs],
+            [t.slo_tps for _s, _a, _p, t in pairs],
+            ttft_percentile=ttft_percentile,
+        )
+        rate_star = out[:, 3]  # throughput (req/sec) at the binding rate
+
+        for i, (server, acc_name, profile, target) in enumerate(pairs):
+            if not feasible[i] or rate_star[i] <= 0:
+                continue
+            total = replica_demand(
+                server.load.arrival_rate, target.slo_tps, server.load.avg_out_tokens
+            )
+            replicas = max(math.ceil(total / rate_star[i]), server.min_num_replicas)
+            if replicas <= 0:
+                continue
+            analyzer = native.NativeQueueAnalyzer(
+                QueueConfig(
+                    max_batch_size=n_eff[i],
+                    max_queue_size=MAX_QUEUE_TO_BATCH_RATIO * n_eff[i],
+                    parms=ServiceParms(profile.alpha, profile.beta,
+                                       profile.gamma, profile.delta),
+                ),
+                RequestSize(server.load.avg_in_tokens, server.load.avg_out_tokens),
+            )
+            try:
+                m = analyzer.analyze(total / replicas)
+            except ValueError:
+                continue
+            acc = self.accelerators[acc_name]
+            model = self.models[server.model_name]
+            alloc = Allocation(
+                accelerator=acc_name,
+                num_replicas=replicas,
+                batch_size=n_eff[i],
+                cost=acc.cost * model.num_instances(acc_name) * replicas,
+                itl=m.avg_token_time,
+                ttft=m.avg_wait_time + m.avg_prefill_time,
+                rho=m.rho,
+                max_arrv_rate_per_replica=rate_star[i] / 1000.0,
             )
             alloc.value = alloc.cost
             self._value_and_store(server, acc_name, alloc)

@@ -336,31 +336,40 @@ class DeviceAudit:
     reference package's JAX audit (its keys, "retraces" included, which
     the port leaves empty: PyTorch has no trace to redo), fed by the
     port's readback, arena-pack and kernel-build choke points. Cheap and
-    lock-guarded: note_transfer is a dict increment per copy. The port
-    runs unsharded, so the "sharded" tally of the reference's delta
-    never appears."""
+    lock-guarded: note_transfer is a dict increment per copy. Transfers
+    across a device mesh (the sharded fleet arena's uploads and
+    scatters, the sharded decision's gather) are also tallied per shard
+    count, as the reference's "sharded" tally is."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._transfers: dict[str, int] = {}
+        self._sharded: dict[str, int] = {}
         self._compiles: list[tuple[str, float]] = []
 
     def note_compile(self, fn: str, seconds: float) -> None:
         with self._lock:
             self._compiles.append((fn, seconds))
 
-    def note_transfer(self, direction: str, n: int = 1) -> None:
+    def note_transfer(self, direction: str, n: int = 1,
+                      shards: int = 1) -> None:
         """direction: "h2d" (host arrays staged onto device) or "d2h"
-        (device results pulled back to host)."""
+        (device results pulled back to host). Transfers that cross a
+        sharded boundary pass shards > 1 and are also tallied under
+        "<direction>@<shards>"."""
         with self._lock:
             self._transfers[direction] = \
                 self._transfers.get(direction, 0) + n
+            if shards > 1:
+                key = f"{direction}@{shards}"
+                self._sharded[key] = self._sharded.get(key, 0) + n
 
     def snapshot(self) -> dict:
         with self._lock:
             return {
                 "retraces": {},
                 "transfers": dict(self._transfers),
+                "sharded": dict(self._sharded),
                 "compiles": list(self._compiles),
             }
 
@@ -377,11 +386,20 @@ class DeviceAudit:
             for d, n in new.get("transfers", {}).items()
             if n - old.get("transfers", {}).get(d, 0) > 0}
         compiles = new.get("compiles", [])[len(old.get("compiles", [])):]
-        return {
+        out = {
             "retraces": retraces,
             "transfers": transfers,
             "compiles": [[fn, round(s, 4)] for fn, s in compiles],
         }
+        sharded = {
+            d: n - old.get("sharded", {}).get(d, 0)
+            for d, n in new.get("sharded", {}).items()
+            if n - old.get("sharded", {}).get(d, 0) > 0}
+        # omitted when no mesh traffic occurred, so unsharded records
+        # keep their exact shape
+        if sharded:
+            out["sharded"] = sharded
+        return out
 
 
 DEVICE_AUDIT = DeviceAudit()

@@ -19,6 +19,10 @@ Every pack hands out tensors that own their memory: `torch.tensor`
 copies, so no later pack can rewrite an earlier pack's tensors through
 the resident slab (`torch.as_tensor` of a float64 slab would share it on
 the CPU in float64).
+
+`ShardedFleetArena` is the fleet-mesh form (the reference's class of the
+same name): its slabs stay resident on the mesh's devices, one slab per
+shard, and each pack moves only the lanes that changed.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ..obs.profile import DEVICE_AUDIT
+from ..utils.device import resolve_dtype
 from .batched import QueueBatch, SLOTargets
 from .fused import EpilogueBatch
 from .queueing import MAX_QUEUE_TO_BATCH_RATIO
@@ -176,3 +181,168 @@ class CandidateArena:
                             min_replicas=i("min_replicas"),
                             cost_rate=f("cost_rate"))
         return q, slo, epi
+
+
+# scatter index padding quantum: pins the scatter's index count across
+# cycles with different churn sizes
+SCATTER_BUCKET = 16
+
+_QUEUE_FIELDS = ("alpha", "beta", "gamma", "delta", "in_tokens",
+                 "out_tokens", "max_batch", "occupancy", "valid")
+
+
+class ShardedFleetArena(CandidateArena):
+    """CandidateArena whose slabs live resident on the devices of a lane
+    mesh (parallel.fleet_mesh), one contiguous slab per shard.
+
+    The inherited numpy slabs become a host mirror used for change
+    detection: each pack diffs the incoming rows against the mirror, and
+    only the changed lanes (their index padded to SCATTER_BUCKET with
+    repeats of the first, which carry identical values) are copied into
+    the resident slabs in place: steady-state churn moves O(changed)
+    bytes to the devices, a zero-diff pack moves none. Padding lands per
+    shard (parallel.padded_lanes), so every shard's slab is a multiple
+    of the lane quantum.
+
+    Exactness: values stage through the same numpy dtypes and the same
+    casts as CandidateArena.pack, and a scatter writes exactly the lanes
+    whose staged values differ, so the resident slabs are bit-identical
+    to a fresh upload of the mirror. `pack` returns `parallel.Shards`
+    views of the resident slabs: they hold this pack's values until the
+    next pack of the same shape.
+    """
+
+    def __init__(self, mesh, dtype=None) -> None:
+        super().__init__()
+        self.mesh = mesh
+        self.dtype = resolve_dtype(dtype)
+        # (padded lane count) -> {column: [one resident tensor per shard]}
+        self._device: dict[int, dict[str, list]] = {}
+        self.full_uploads = 0     # whole-slab uploads (1 per shape)
+        self.scatter_packs = 0    # packs served by the scatter
+        self.noop_packs = 0       # packs with zero changed lanes (no h2d)
+        self.lanes_scattered = 0  # total changed lanes scattered
+
+    def _torch_dtype(self, name: str) -> torch.dtype:
+        dt = {**_COLUMNS, **_EPI_COLUMNS}[name][0]
+        if dt is bool:
+            return torch.bool
+        return torch.int32 if np.issubdtype(dt, np.integer) else self.dtype
+
+    def _upload(self, b: int, names) -> None:
+        """Whole-slab upload of the mirror of shape b: each shard's
+        contiguous piece of every column onto its device."""
+        slab = self._slabs[b]
+        per = b // self.mesh.size
+        self._device[b] = {
+            name: [torch.tensor(slab[name][i * per:(i + 1) * per],
+                                dtype=self._torch_dtype(name), device=dev)
+                   for i, dev in enumerate(self.mesh.devices)]
+            for name in names}
+        self.full_uploads += 1
+        DEVICE_AUDIT.note_transfer("h2d", len(names), shards=self.mesh.size)
+
+    def restore_slabs(self, snap: dict) -> None:
+        """Restore the host mirrors and stage them onto the mesh, so the
+        first pack after a restart rides the scatter (O(changed)) instead
+        of a whole-slab upload. Raises ValueError, committing nothing,
+        when a slab does not split into the mesh's shards."""
+        for b_key in snap:
+            if int(b_key) % self.mesh.size:
+                raise ValueError(f"arena slab {b_key}: does not split into "
+                                 f"{self.mesh.size} shards")
+        super().restore_slabs(snap)
+        names = [*_COLUMNS, *_EPI_COLUMNS]
+        for b in self._slabs:
+            if b not in self._device:
+                self._upload(b, names)
+
+    def pack(self, rows: dict[str, list], quantum: int = LANE_BUCKET, *,
+             device=None, dtype=None):
+        """Write `rows` into the mirror, move the changed lanes onto the
+        mesh, and return (Shards of QueueBatch, Shards of SLOTargets,
+        Shards of EpilogueBatch | None) of padded_lanes(C) lanes in all.
+        `device` is the mesh's (ignored); a `dtype` other than the
+        arena's re-stages every slab in it."""
+        from ..parallel.mesh import Shards, padded_lanes
+
+        if dtype is not None and resolve_dtype(dtype) != self.dtype:
+            self.dtype = resolve_dtype(dtype)
+            self._device = {}
+        c = len(rows["alpha"])
+        if "occupancy" not in rows:
+            rows = dict(rows)
+            rows["occupancy"] = [int(m) * (1 + MAX_QUEUE_TO_BATCH_RATIO)
+                                 for m in rows["max_batch"]]
+        with_epi = "demand" in rows
+        b = padded_lanes(c, quantum, self.mesh.size)
+        fresh = b not in self._slabs
+        slab = self._slab(b)
+        columns = dict(_COLUMNS)
+        if with_epi:
+            columns.update(_EPI_COLUMNS)
+
+        # diff the incoming rows against the host mirror, then update it:
+        # the mirror always holds [0, c) real lanes + [c, b) benign fills
+        changed = np.zeros(b, dtype=bool)
+        for name, (dt, fill) in columns.items():
+            new = np.full(b, fill, dtype=dt)
+            if name == "valid":
+                new[:c] = True
+            else:
+                new[:c] = rows[name]
+            buf = slab[name]
+            changed |= new != buf
+            buf[:] = new
+        self.packs += 1
+
+        names = list(columns)
+        device = self._device.get(b)
+        if fresh or device is None or any(n not in device for n in names):
+            self._upload(b, names)
+        else:
+            idx = np.nonzero(changed)[0]
+            if idx.size == 0:
+                self.noop_packs += 1
+            else:
+                self.lanes_scattered += int(idx.size)
+                self.scatter_packs += 1
+                self._scatter(b, names, idx)
+        device = self._device[b]
+
+        def shards(cls, fields):
+            return Shards(cls(*(device[f][i] for f in fields))
+                          for i in range(self.mesh.size))
+
+        q = shards(QueueBatch, _QUEUE_FIELDS)
+        slo = shards(SLOTargets, ("ttft", "itl", "tps"))
+        if not with_epi:
+            return q, slo, None
+        return q, slo, shards(EpilogueBatch,
+                              ("demand", "min_replicas", "cost_rate"))
+
+    def _scatter(self, b: int, names, idx: np.ndarray) -> None:
+        """Copy the mirror's values at lanes `idx` into the resident
+        slabs: one index upload and one value slice per column, counted
+        as such in the device audit, each shard taking its own lanes."""
+        n_idx = lane_bucket(int(idx.size), SCATTER_BUCKET)
+        idx_p = np.concatenate(
+            [idx, np.full(n_idx - idx.size, idx[0], idx.dtype)])
+        DEVICE_AUDIT.note_transfer("h2d", 1 + len(names),
+                                   shards=self.mesh.size)
+        slab, device = self._slabs[b], self._device[b]
+        per = b // self.mesh.size
+        for i, dev in enumerate(self.mesh.devices):
+            mine = idx_p[(idx_p >= i * per) & (idx_p < (i + 1) * per)]
+            if mine.size == 0:
+                continue
+            local = torch.tensor(mine - i * per, dtype=torch.long,
+                                 device=dev)
+            for name in names:
+                vals = torch.tensor(slab[name][mine],
+                                    dtype=self._torch_dtype(name),
+                                    device=dev)
+                device[name][i].index_copy_(0, local, vals)
+        # as the reference's scatter does, keep only the columns this pack
+        # staged: a later pack that needs another column uploads afresh
+        self._device[b] = {name: device[name] for name in names}

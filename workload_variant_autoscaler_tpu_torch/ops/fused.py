@@ -129,7 +129,7 @@ def decide_batch(q: QueueBatch, targets: SLOTargets, epi: EpilogueBatch,
 
 def warmup(max_batch: int = 256, bucket: int = 16,
            ttft_percentile: float | None = None, *,
-           device=None, dtype=None) -> None:
+           device=None, dtype=None, mesh=None) -> None:
     """Build the CUDA library and run one `decide_batch` with
     `backend="kernel"` at one sizing group's shape (`bucket` lanes, K
     from `max_batch`, the tail form when `ttft_percentile` is set), so
@@ -137,11 +137,14 @@ def warmup(max_batch: int = 256, bucket: int = 16,
     Counterpart of the reference package's `ops/batched.py warmup`; call
     it for each entry of `controller.translate.warmup_plan`. Runs on the
     card unless `device="cpu"` is asked (the kernels' plain versions, no
-    build). Raises on any failure to build or launch: nothing here is
-    best-effort."""
-    dev = resolve_device(device)
+    build). With a mesh (parallel.Mesh) the sharded decision runs
+    instead, on every device of the mesh, from its first device. Raises
+    on any failure to build or launch: nothing here is best-effort."""
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     dt = resolve_dtype(dtype)
-    if dev.type == "cuda":
+    on_card = (dev.type == "cuda" if mesh is None
+               else any(d.type == "cuda" for d in mesh.devices))
+    if on_card:
         _build.library("bisect_kernel")
     b = bucket
     q = make_queue_batch(
@@ -154,8 +157,16 @@ def warmup(max_batch: int = 256, bucket: int = 16,
     epi = make_epilogue_batch(np.full(b, 1.0), np.full(b, 1, dtype=np.int64),
                               np.full(b, 1.0), dt, dev)
     k_max = k_max_bucket(k_max_for([max_batch]))
-    decide_batch(q, targets, epi, k_max, ttft_percentile=ttft_percentile,
-                 backend="kernel")
-    if dev.type == "cuda":
-        # a fault during the launch surfaces here, not in the first cycle
-        torch.cuda.synchronize(dev)
+    if mesh is not None:
+        from ..parallel.mesh import decide_batch_sharded
+
+        decide_batch_sharded(q, targets, epi, k_max, mesh,
+                             ttft_percentile=ttft_percentile,
+                             backend="kernel")
+    else:
+        decide_batch(q, targets, epi, k_max, ttft_percentile=ttft_percentile,
+                     backend="kernel")
+    # a fault during a launch surfaces here, not in the first cycle
+    for d in ({dev} if mesh is None else set(mesh.devices)):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)

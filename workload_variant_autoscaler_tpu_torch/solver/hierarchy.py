@@ -44,10 +44,12 @@ state: no forced full pass. Any defect (torn file, CRC mismatch, version
 skew, stale age, config mismatch) discards the checkpoint and
 cold-starts; a checkpoint can make a restart faster, never different.
 
-The port runs unsharded: there is no device mesh (the reference's lane
-mesh and `ShardedFleetArena` are not ported), so every shard arena is a
-`CandidateArena`, a checkpoint records `arena_mesh: None`, and only such
-a snapshot pre-warms a shard arena. `WVA_HIER_SOLVE=off` selects the
+On a lane mesh (WVA_SHARDED_FLEET, parallel.fleet_mesh) every shard
+arena is a `ShardedFleetArena` resident on the mesh; unsharded, a
+`CandidateArena`; under a candidate mesh (WVA_MESH_DEVICES) the groups
+pack without an arena. A checkpoint records the mesh size as
+`arena_mesh` (None unsharded), and a restore pre-stages the arena slabs
+only onto a mesh of the same size. `WVA_HIER_SOLVE=off` selects the
 flat engine (controller/reconciler.py); `auto` delegates to the flat
 code path below `WVA_HIER_MIN_VARIANTS`, so small fleets keep the flat
 behavior.
@@ -67,7 +69,8 @@ from ..models import System
 from ..models.allocation import Allocation
 from ..models.spec import OptimizerSpec
 from ..models.system import fused_solve_enabled
-from ..ops.arena import CandidateArena
+from ..ops.arena import CandidateArena, ShardedFleetArena
+from ..parallel import is_lane_mesh
 from ..stream.checkpoint import (
     ARENA_CHECKPOINT_MAGIC,
     ARENA_CHECKPOINT_VERSION,
@@ -161,8 +164,10 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = max(int(checkpoint_every), 1)
         self.checkpoint_max_age_s = float(checkpoint_max_age_s)
-        # per-shard resident arenas, keyed by shard id
+        # per-shard resident arenas, keyed by shard id; rebuilt when the
+        # effective mesh changes (as the flat engine's fleet arena is)
         self._shard_arenas: dict[int, CandidateArena] = {}
+        self._shard_arena_mesh = None
         # per-shard solve-signature digests: committed at finish_cycle,
         # pending between calculate() and finish_cycle(). None pending
         # means this cycle ran the flat delegate path.
@@ -352,20 +357,32 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
 
     # -- arenas -----------------------------------------------------------
 
-    def _shard_arena(self, sid: int) -> CandidateArena:
+    def _shard_arena(self, sid: int, eff_mesh=None,
+                     dtype=None) -> Optional[CandidateArena]:
+        if eff_mesh is not None and not is_lane_mesh(eff_mesh):
+            return None  # explicit candidate mesh: no resident arena
+        if self._shard_arena_mesh != eff_mesh:
+            self._shard_arenas = {}
+            self._shard_arena_mesh = eff_mesh
         arena = self._shard_arenas.get(sid)
         if arena is None:
-            arena = self._shard_arenas[sid] = CandidateArena()
-            self._materialize_arena_snap(arena, sid)
+            arena = (CandidateArena() if eff_mesh is None
+                     else ShardedFleetArena(eff_mesh, dtype=dtype))
+            self._materialize_arena_snap(arena, sid, eff_mesh)
+            self._shard_arenas[sid] = arena
         return arena
 
-    def _materialize_arena_snap(self, arena: CandidateArena,
-                                sid: int) -> None:
-        """Restore a checkpointed shard arena's slabs when the snapshot
-        was taken unsharded (as the port always runs). A malformed
-        snapshot skips the pre-warm only: the arena starts fresh."""
+    def _materialize_arena_snap(self, arena: CandidateArena, sid: int,
+                                eff_mesh) -> None:
+        """Restore a checkpointed shard arena's slabs (and, on a lane
+        mesh, stage them onto it) when the snapshot was taken on a mesh
+        of the same size (None: unsharded). A malformed snapshot skips
+        the pre-warm only: the arena starts fresh."""
         snap = self._restored_arena.pop(str(sid), None)
-        if not snap or self._restored_arena_mesh is not None:
+        if not snap:
+            return
+        want = eff_mesh.size if eff_mesh is not None else None
+        if self._restored_arena_mesh != want:
             return
         try:
             arena.restore_slabs(snap)
@@ -375,7 +392,8 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
 
     # -- the analyze step -------------------------------------------------
 
-    def calculate(self, system: System, *, backend: str,
+    def calculate(self, system: System, *, backend: str, mesh=None,
+                  fleet_mesh=None,
                   ttft_percentile: Optional[float] = None,
                   optimizer_spec: Optional[OptimizerSpec] = None,
                   rungs: Optional[dict] = None,
@@ -388,30 +406,34 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
             # marks "no hier partition this cycle".
             self._pending_shard_digests = None
             return super().calculate(
-                system, backend=backend, ttft_percentile=ttft_percentile,
+                system, backend=backend, mesh=mesh, fleet_mesh=fleet_mesh,
+                ttft_percentile=ttft_percentile,
                 optimizer_spec=optimizer_spec, rungs=rungs,
                 cycle_rung=cycle_rung)
         return self._calculate_hier(
-            system, backend=backend, ttft_percentile=ttft_percentile,
-            optimizer_spec=optimizer_spec, rungs=rungs or {},
-            cycle_rung=cycle_rung, restoring=restoring)
+            system, backend=backend, mesh=mesh, fleet_mesh=fleet_mesh,
+            ttft_percentile=ttft_percentile, optimizer_spec=optimizer_spec,
+            rungs=rungs or {}, cycle_rung=cycle_rung, restoring=restoring)
 
-    def _calculate_hier(self, system: System, *, backend: str,
-                        ttft_percentile, optimizer_spec, rungs: dict,
-                        cycle_rung: str, restoring: bool) -> SolveStats:
+    def _calculate_hier(self, system: System, *, backend: str, mesh,
+                        fleet_mesh, ttft_percentile, optimizer_spec,
+                        rungs: dict, cycle_rung: str,
+                        restoring: bool) -> SolveStats:
         self._cycle += 1
+        eff_mesh = mesh if mesh is not None else fleet_mesh
 
         for server in system.servers.values():
             server.load = quantize_load(server.load, self.epsilon)
 
-        # the reference package's mesh size and lane-mesh flag sit in the
-        # two slots after the backend; the port runs unsharded
-        analyze_sig = (backend, None, False, ttft_percentile,
+        analyze_sig = (backend,
+                       eff_mesh.size if eff_mesh is not None else None,
+                       is_lane_mesh(eff_mesh),
+                       ttft_percentile,
                        fused_solve_enabled())
         if restoring and self._analyze_sig != analyze_sig:
             # the checkpoint was taken under a different pipeline
-            # (backend/percentile/fused): its cached allocations may not
-            # match this one's, so discard rather than mix
+            # (backend/mesh/percentile/fused): its cached allocations may
+            # not match this one's, so discard rather than mix
             self._discard_restore("discard_config",
                                   "pipeline config changed")
             restoring = False
@@ -499,12 +521,12 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
             # no lanes to dispatch; still run the (empty) calculate so
             # accelerator derivations happen as on the flat path. It
             # packs nothing, so the System keeps its own arena.
-            system.calculate(backend=backend,
+            system.calculate(backend=backend, mesh=eff_mesh,
                              ttft_percentile=ttft_percentile, only=set())
         for sid in sorted(by_shard):
             sel = by_shard[sid]
-            system.arena = self._shard_arena(sid)
-            system.calculate(backend=backend,
+            system.arena = self._shard_arena(sid, eff_mesh, system.dtype)
+            system.calculate(backend=backend, mesh=eff_mesh,
                              ttft_percentile=ttft_percentile, only=sel)
             total_lanes += system.last_solve_lanes
             unique_lanes += system.last_unique_lanes
@@ -641,7 +663,9 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
                 "value_sig": list(vs) if vs is not None else None,
             }
         arena_snaps = {str(sid): arena.snapshot_slabs()
-                       for sid, arena in self._shard_arenas.items()}
+                       for sid, arena in self._shard_arenas.items()
+                       if arena is not None}
+        mesh = self._shard_arena_mesh
         return {
             "taken_at": time.time(),
             "cycle": self._cycle,
@@ -665,7 +689,7 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
                       for name, chips in self._prev_pools.items()},
             "complete": bool(self._prev_complete),
             "arena": arena_snaps,
-            "arena_mesh": None,
+            "arena_mesh": mesh.size if mesh is not None else None,
         }
 
     def _discard_restore(self, event: str, why: str) -> None:

@@ -41,7 +41,8 @@ from ..models import System
 from ..models.allocation import replica_demand
 from ..models.spec import OptimizerSpec, ServerLoadSpec
 from ..models.system import fused_solve_enabled
-from ..ops.arena import CandidateArena
+from ..ops.arena import CandidateArena, ShardedFleetArena
+from ..parallel import is_lane_mesh
 from .solver import WarmStart
 
 log = logging.getLogger("wva.solver.incremental")
@@ -130,6 +131,9 @@ class IncrementalSolveEngine:
         self.epsilon = epsilon
         self.full_every = max(int(full_every), 0)
         self.arena = CandidateArena()
+        # built when a lane mesh is in play: slabs resident on the mesh,
+        # rebuilt whenever the mesh itself changes
+        self._fleet_arena = None
         self._cycle = 0
         # server name -> signature of the lane inputs the cache entry
         # was solved from, and the pristine allocation clones themselves
@@ -219,7 +223,8 @@ class IncrementalSolveEngine:
 
     # -- the analyze step -------------------------------------------------
 
-    def calculate(self, system: System, *, backend: str,
+    def calculate(self, system: System, *, backend: str, mesh=None,
+                  fleet_mesh=None,
                   ttft_percentile: Optional[float] = None,
                   optimizer_spec: Optional[OptimizerSpec] = None,
                   rungs: Optional[dict] = None,
@@ -228,21 +233,30 @@ class IncrementalSolveEngine:
         cached candidate allocations for unchanged variants, sizes only
         the changed sub-batch (through the resident arena), and
         refreshes the cache. Also precomputes the warm-start decision
-        the optimize stage consumes via warm_start()."""
+        the optimize stage consumes via warm_start().
+
+        `fleet_mesh` (WVA_SHARDED_FLEET; parallel.fleet_mesh) splits the
+        variant/lane axis: every device pass, full and incremental, runs
+        through the sharded decision and the resident ShardedFleetArena.
+        It yields to an explicit candidate `mesh` (WVA_MESH_DEVICES)
+        when both are set."""
         self._cycle += 1
         rungs = rungs or {}
         optimizer_spec = optimizer_spec or OptimizerSpec()
+        eff_mesh = mesh if mesh is not None else fleet_mesh
 
         # quantized load is the solve's input (module docstring), applied
         # before signatures so bucket-stable jitter reads as unchanged
         for server in system.servers.values():
             server.load = quantize_load(server.load, self.epsilon)
 
-        # the fused-solve knob rides the analyze signature: flipping
-        # WVA_FUSED_SOLVE mid-run forces a full re-solve. The two slots
-        # after the backend hold the reference package's mesh size and
-        # lane-mesh flag; the port runs unsharded.
-        analyze_sig = (backend, None, False, ttft_percentile,
+        # the mesh and the fused-solve knob ride the analyze signature:
+        # changing either mid-run forces a full re-solve, so a cache
+        # never mixes allocations from two pipelines
+        analyze_sig = (backend,
+                       eff_mesh.size if eff_mesh is not None else None,
+                       is_lane_mesh(eff_mesh),
+                       ttft_percentile,
                        fused_solve_enabled())
         solve_sig = self._solve_signature(system, optimizer_spec, cycle_rung)
 
@@ -267,9 +281,18 @@ class IncrementalSolveEngine:
             for name, server in system.servers.items()
         }
 
-        system.arena = self.arena
+        if eff_mesh is None:
+            system.arena = self.arena
+        elif is_lane_mesh(eff_mesh):
+            if (self._fleet_arena is None
+                    or self._fleet_arena.mesh != eff_mesh):
+                self._fleet_arena = ShardedFleetArena(eff_mesh,
+                                                      dtype=system.dtype)
+            system.arena = self._fleet_arena
+        else:
+            system.arena = None
         if full:
-            system.calculate(backend=backend,
+            system.calculate(backend=backend, mesh=eff_mesh,
                              ttft_percentile=ttft_percentile)
             self._alloc_cache = {}
             self._lane_sigs = {}
@@ -297,7 +320,7 @@ class IncrementalSolveEngine:
                     continue
                 skipped_lanes += self._restore(system, server,
                                                self._alloc_cache[name])
-            system.calculate(backend=backend,
+            system.calculate(backend=backend, mesh=eff_mesh,
                              ttft_percentile=ttft_percentile,
                              only=changed)
             for name in changed:

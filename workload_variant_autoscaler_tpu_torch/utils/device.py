@@ -62,8 +62,9 @@ def resolve_dtype(dtype=None) -> torch.dtype:
     return dtype
 
 
-def readback(t: torch.Tensor) -> np.ndarray:
+def readback(t: torch.Tensor, shards: int = 1) -> np.ndarray:
     """The single device-to-host copy of a packed result (counted as one
-    d2h transfer by the device audit)."""
-    DEVICE_AUDIT.note_transfer("d2h")
+    d2h transfer by the device audit; `shards` > 1 marks the gathered
+    result of a lane mesh)."""
+    DEVICE_AUDIT.note_transfer("d2h", shards=shards)
     return t.detach().cpu().numpy()

@@ -42,9 +42,17 @@ cycles), splits the decision over 4-entry lane and candidate meshes of
 the card (bit for bit the unsharded decision, 4 launches of each form
 per group), drives the flat and the hierarchical engine on the lane mesh
 against unsharded ones, restarts from a lane-mesh checkpoint, and reads
-the mesh knobs (phase 11). Phases 1-10 pin WVA_NATIVE_KERNEL=false, so
-their CPU references stay on the batched path. It prints one JSON line
-per phase-8 and phase-9 fleet, per phase-10 run and per phase-11 part,
+the mesh knobs (phase 11), then runs the repo's two headline benchmarks
+through the port's own entry points: the north-star closed loop
+(bench_torch_loop.py: the emulated TPU fleet, sim-time Prometheus and
+the Reconciler on the card, full duration) on sharegpt-ramp,
+sharegpt-p95-sizing and whole-fleet-p95 in float32, each holding its SLO
+with B2 in every cycle a p95 loop sizes, sharegpt-p95-sizing in float64
+on the card against the CPU, and bench_torch.py's candidate sizings per
+second at 4096 candidates with its end-to-end backend parity (phase 12).
+Phases 1-10 and 12 pin WVA_NATIVE_KERNEL=false, so their CPU references
+stay on the batched path. It prints one JSON line per phase-8 and
+phase-9 fleet, per phase-10 run, per phase-11 part and per phase-12 run,
 one for the kernels and a final status line. Every phase raises on
 failure; the script exits non-zero when CUDA is absent or any check
 fails.
@@ -198,6 +206,22 @@ NATIVE_RECON_CYCLES = 3
 # phase 11's device (a CPU rehearsal sets "cpu")
 MESH_DEVICE = "cuda"
 
+# phase 12: the repo's two headline benchmarks through the port's own
+# entry points (bench_torch_loop.py, bench_torch.py). 12a: LOOP_F32 at
+# full duration in float32 on the card; 12b: LOOP_WIDE at full duration
+# in float32, and LOOP_F64 in float64 on the card against the CPU; the
+# five runs in LOOP_WORKERS worker processes, beside 12c: the
+# bench_torch record at BENCH_CANDIDATES candidates, in this process.
+# Every closed loop holds its SLO; a p95 scenario launches B2 in every
+# cycle that sizes.
+LOOP_F32 = ("sharegpt-ramp", "sharegpt-p95-sizing")
+LOOP_WIDE = "whole-fleet-p95"
+LOOP_F64 = "sharegpt-p95-sizing"
+LOOP_WORKERS = 5
+BENCH_CANDIDATES = 4096
+# phase 12's device (a CPU rehearsal sets "cpu")
+LOOP_DEVICE = "cuda"
+
 # H100 SXM peaks (NVIDIA data sheet; the special-function rate is 16
 # results per clock per SM for compute capability 9.0, at the 1.98 GHz
 # boost clock over 132 SMs)
@@ -274,14 +298,6 @@ def blocks_per_sm(dtype: torch.dtype, k_max: int, tail_pct, long_team: bool):
         raise RuntimeError(f"occupancy query failed: CUDA error {err} "
                            f"({lib.wva_error_string(err).decode()})")
     return blocks.value
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def build_fleet(n_variants: int, seed: int):
@@ -3062,6 +3078,148 @@ def phase_11(card) -> dict:
     return mesh["launches_per_sharded_group"]
 
 
+def loop_job(key: str, device: str, dtype_name: str):
+    """One bench_torch_loop run at full duration, in a worker process:
+    (key, device, dtype, result, launches, wall s). The launch counts are
+    set to 0 just before the run and read just after."""
+    import logging
+
+    import bench_torch_loop as bl
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    torch.set_num_threads(1)
+    quiet_wva_loggers(logging.CRITICAL)
+    where = {"device": device, "dtype": getattr(torch, dtype_name)}
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    result = (bl.run(**where) if key == "sharegpt-ramp"
+              else bl.run_scenario(bl.SCENARIOS[key], **where))
+    wall = time.perf_counter() - t0
+    return key, device, dtype_name, result, dict(bk.launches), wall
+
+
+def loop_summary(label, card, key, result, launched, wall) -> dict:
+    """Check one closed loop on the card (its SLO held; B1 launched in
+    every cycle that sized, B2 too in a scenario that sizes on a TTFT
+    percentile, never in a mean one), log its line, return its launches
+    per cycle."""
+    import bench_torch_loop as bl
+
+    k = result["kernel_launches"]
+    sized = k["sizing_cycles"]
+    p95 = (key in bl.SCENARIOS
+           and "WVA_TTFT_PERCENTILE" in bl.SCENARIOS[key].operator_extra)
+    if not result["slo_held"]:
+        raise AssertionError(f"{label} {key}: the SLO did not hold: {result}")
+    # on the CPU (a rehearsal) nothing launches
+    on_card = LOOP_DEVICE == "cuda"
+    if sized < 1 or on_card and (launched["mean"] < 1
+                                 or k["sizing_cycles_with_B1"] != sized):
+        raise AssertionError(f"{label} {key}: B1 was not launched in every "
+                             f"cycle that sized: {k}, {launched}")
+    if p95 and on_card and (launched["tail"] < 1
+                            or k["sizing_cycles_with_B2"] != sized):
+        raise AssertionError(f"{label} {key}: B2 was not launched in every "
+                             f"cycle that sized: {k}, {launched}")
+    if not p95 and launched["tail"]:
+        raise AssertionError(f"{label} {key}: B2 launched on a mean-sized "
+                             f"loop: {launched}")
+    tails = ({"": {"p95_itl_ms": result["p95_itl_ms"],
+                   "p95_ttft_ms": result["p95_ttft_ms"]}}
+             if "variants" not in result else
+             {name: {"p95_itl_ms": v["p95_itl_ms"],
+                     "p95_ttft_ms": v["p95_ttft_ms"]}
+              for name, v in result["variants"].items()})
+    log(json.dumps({
+        "phase": label, "card": card, "scenario": key,
+        "dtype": result["dtype"], "chip_hours": result["value"],
+        "vs_baseline": result["vs_baseline"], "slo_held": True,
+        "p95": tails, "energy_wh": result["energy_wh"],
+        "probe_kicks": result.get("probe_kicks"),
+        "reconcile_wall_ms_p50": result["reconcile_wall_ms_p50"],
+        "reconcile_wall_ms_max": result["reconcile_wall_ms_max"],
+        "cycles": k["cycles"], "sizing_cycles": sized,
+        "launches": {"B1": launched["mean"], "B2": launched["tail"]},
+        "wall_s": wall}))
+    return {"B1": k["B1_per_cycle"], "B2": k["B2_per_cycle"]}
+
+
+def bench_phase(card) -> dict:
+    """12c: the bench_torch record at BENCH_CANDIDATES candidates on the
+    card; the end-to-end stage's backends must agree and both forms
+    launch."""
+    import bench_torch
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    rec = bench_torch.run(BENCH_CANDIDATES, device=LOOP_DEVICE)
+    wall = time.perf_counter() - t0
+    launched = dict(bk.launches)
+    if not rec["e2e"]["backends_agree"]:
+        raise AssertionError(f"12c: the end-to-end stage's backends "
+                             f"allocate differently: {rec['e2e']}")
+    if LOOP_DEVICE == "cuda" and (launched["mean"] < 1
+                                  or launched["tail"] < 1):
+        raise AssertionError(f"12c: a kernel was not launched: {launched}")
+    if not (rec["value"] > 0 and rec["tail_sizings_per_sec"] > 0
+            and rec["sequential_rate"] > 0):
+        raise AssertionError(f"12c: bad rates {rec}")
+    log(json.dumps({"phase": "12c", "card": card,
+                    "launches": {"B1": launched["mean"],
+                                 "B2": launched["tail"]},
+                    "wall_s": wall, **rec}))
+    return rec
+
+
+def phase_12(card) -> dict:
+    """Phase 12 (12a-12c); the closed loops run in spawned workers beside
+    12c. Returns the B1/B2 launches per closed-loop cycle of each
+    float32 run on the card."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import bench_torch_loop as bl
+
+    jobs = [(key, LOOP_DEVICE, "float32") for key in (*LOOP_F32, LOOP_WIDE)]
+    jobs += [(LOOP_F64, dev, "float64") for dev in (LOOP_DEVICE, "cpu")]
+    pool = ProcessPoolExecutor(
+        LOOP_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        pending = [pool.submit(loop_job, *job) for job in jobs]
+        bench_phase(card)
+        results = [p.result(timeout=900) for p in pending]
+    finally:
+        workers = list((pool._processes or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in workers:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=30)
+    by = {(key, dev, dt): (result, launched, wall)
+          for key, dev, dt, result, launched, wall in results}
+    per_cycle = {}
+    for key in (*LOOP_F32, LOOP_WIDE):
+        label = "12a" if key in LOOP_F32 else "12b"
+        per_cycle[key] = loop_summary(label, card, key,
+                                      *by[(key, LOOP_DEVICE, "float32")])
+    card64, launched, card_wall = by[(LOOP_F64, LOOP_DEVICE, "float64")]
+    cpu64, _, cpu_wall = by[(LOOP_F64, "cpu", "float64")]
+    keys = (set(card64) | set(cpu64)) - bl.WHERE_KEYS
+    differ = sorted(k for k in keys if card64.get(k) != cpu64.get(k))
+    if differ:
+        raise AssertionError(
+            f"12b {LOOP_F64}: the card's float64 run differs from the CPU's "
+            f"in {differ}: card {[card64.get(k) for k in differ]}, CPU "
+            f"{[cpu64.get(k) for k in differ]}")
+    loop_summary("12b", card, LOOP_F64, card64, launched, card_wall)
+    log(json.dumps({"phase": "12b", "card": card, "scenario": LOOP_F64,
+                    "dtype": "float64", "equal_to_cpu": True,
+                    "keys_compared": len(keys), "wall_s_card": card_wall,
+                    "wall_s_cpu": cpu_wall}))
+    return per_cycle
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3069,6 +3227,7 @@ def main() -> int:
         return 2
     from workload_variant_autoscaler_tpu_torch.ops import _build
     from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+    from workload_variant_autoscaler_tpu_torch.utils.device import device_name
 
     t_start = time.perf_counter()
     # phases 1-10 hold the card against the batched path on the CPU; the
@@ -3077,7 +3236,7 @@ def main() -> int:
     pinned.enter_context(env("WVA_NATIVE_KERNEL", "false"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    card = device_name(torch.device("cuda", 0))
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
@@ -3295,6 +3454,17 @@ def main() -> int:
         row["launches_per_sharded_group"] = {
             form: n[row["name"]] for form, n in per_group.items()}
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    log("phase 12: the north-star closed loop (bench_torch_loop) and "
+        "candidate-sizing throughput (bench_torch) on the card")
+    gc.collect()
+    t12 = time.perf_counter()
+    with env("WVA_NATIVE_KERNEL", "false"):
+        loops = phase_12(card)
+    for row in rows:
+        row["launches_per_closed_loop_cycle"] = {
+            key: n[row["name"]] for key, n in loops.items()}
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -852,3 +852,72 @@ def test_native_backend_equals_kernel_on_card(card):
             assert launched == {"mean": 0, "tail": 0}
     assert out["native"] == out["kernel"]
     assert len(out["native"]) == 64
+
+
+def root_scripts():
+    """The repository's root entry points, bench_torch_loop and
+    bench_torch (the file runs with --noconftest, so the root is put on
+    the path here)."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import bench_torch
+    import bench_torch_loop
+
+    return bench_torch_loop, bench_torch
+
+
+def test_bench_loop_mini_p95_on_card_equals_cpu_float64(card, monkeypatch):
+    """A mini sharegpt-p95-sizing (one 5x step, 3 sim minutes) through
+    bench_torch_loop on the card in float64 gives the CPU's result dict,
+    the keys that name where it ran and its walls aside; every cycle that
+    sized launched B2 (TTFT rows) and B1 (ITL rows)."""
+    import dataclasses
+
+    bl, _ = root_scripts()
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    sc = bl.SCENARIOS["sharegpt-p95-sizing"]
+    mini = dataclasses.replace(
+        sc, variants=[dataclasses.replace(
+            v, ramp=[(60, 300), (60, 1500), (60, 300)])
+            for v in sc.variants],
+        warmup_ms=60_000.0, reconcile_ms=30_000.0)
+    ref = bl.run_scenario(mini, device="cpu", dtype=torch.float64)
+    mine = bl.run_scenario(mini, device=card, dtype=torch.float64)
+    k = mine["kernel_launches"]
+    assert k["sizing_cycles"] > 0
+    assert k["sizing_cycles_with_B1"] == k["sizing_cycles_with_B2"] \
+        == k["sizing_cycles"]
+    assert ({key: v for key, v in mine.items() if key not in bl.WHERE_KEYS}
+            == {key: v for key, v in ref.items() if key not in bl.WHERE_KEYS})
+    assert mine["backend"] == "kernel"
+
+
+def test_bench_loop_p95_sizing_holds_its_slo_on_card_float32(card,
+                                                             monkeypatch):
+    """sharegpt-p95-sizing at full duration (30 sim minutes) in float32
+    on the card holds both p95 tails, with B2 in every cycle that
+    sized."""
+    bl, _ = root_scripts()
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    r = bl.run_scenario(bl.SCENARIOS["sharegpt-p95-sizing"], device=card)
+    assert r["slo_held"] and r["dtype"] == "float32"
+    k = r["kernel_launches"]
+    assert k["sizing_cycles"] > 0
+    assert k["sizing_cycles_with_B2"] == k["sizing_cycles"]
+
+
+def test_bench_torch_on_card(card):
+    """bench_torch's kernel-route rates at B = 4096 are positive, and the
+    end-to-end stage's two backends allocate alike on the card."""
+    _, bt = root_scripts()
+    rate, runs, tail_rate, tail_runs = bt.bench_card(
+        bt.build_candidates(4096), iters=10, n_runs=2, device=card)
+    assert rate > 0 and tail_rate > 0 and len(runs) == len(tail_runs) == 2
+    tk.reset_launches()
+    e2e = bt.e2e_stage(16, 2, device=card)
+    assert e2e["backends_agree"] is True
+    assert tk.launches["mean"] > 0 and tk.launches["tail"] > 0

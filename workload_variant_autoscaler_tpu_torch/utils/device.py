@@ -9,6 +9,7 @@ float64 is used when asked, as the parity tests do.
 from __future__ import annotations
 
 import os
+import subprocess
 
 import numpy as np
 import torch
@@ -60,6 +61,25 @@ def resolve_dtype(dtype=None) -> torch.dtype:
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dtype}")
     return dtype
+
+
+def device_name(device) -> str:
+    """"cpu", or the card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them (the
+    label every number measured on the card carries). Raises when
+    nvidia-smi cannot read the card."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return "cpu"
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    # torch's index need not be nvidia-smi's (CUDA_VISIBLE_DEVICES, the
+    # fastest-first order), so the card is named by its UUID
+    uuid = str(torch.cuda.get_device_properties(index).uuid)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "GPU-" + uuid.removeprefix("GPU-")],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
 
 
 def readback(t: torch.Tensor, shards: int = 1) -> np.ndarray:

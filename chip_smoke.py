@@ -49,10 +49,16 @@ the Reconciler on the card, full duration) on sharegpt-ramp,
 sharegpt-p95-sizing and whole-fleet-p95 in float32, each holding its SLO
 with B2 in every cycle a p95 loop sizes, sharegpt-p95-sizing in float64
 on the card against the CPU, and bench_torch.py's candidate sizings per
-second at 4096 candidates with its end-to-end backend parity (phase 12).
-Phases 1-10 and 12 pin WVA_NATIVE_KERNEL=false, so their CPU references
-stay on the batched path. It prints one JSON line per phase-8 and
-phase-9 fleet, per phase-10 run, per phase-11 part and per phase-12 run,
+second at 4096 candidates with its end-to-end backend parity (phase 12),
+then runs the six cycle and event-path benchmarks (bench_torch_collect,
+_profile, _fuse, _stream, _streamload, _streamchaos) at the JAX
+scripts' full sizes, holds their invariants, B1 in every cycle that
+sized, and collect's and stream's decisions in float64 on the card
+against the CPU, and prints their wall-clock budgets as met or not met
+(phase 13). Phases 1-10, 12 and 13 pin WVA_NATIVE_KERNEL=false, so
+their CPU references stay on the batched path. It prints one JSON line
+per phase-8 and phase-9 fleet, per phase-10 run, per phase-11 part, per
+phase-12 run and per phase-13 script,
 one for the kernels and a final status line. Every phase raises on
 failure; the script exits non-zero when CUDA is absent or any check
 fails.
@@ -221,6 +227,17 @@ LOOP_WORKERS = 5
 BENCH_CANDIDATES = 4096
 # phase 12's device (a CPU rehearsal sets "cpu")
 LOOP_DEVICE = "cuda"
+
+# phase 13: the cycle and event-path benchmarks through the port's root
+# scripts (bench_torch_collect, _profile, _fuse, _stream, _streamload,
+# _streamchaos) at the JAX scripts' full sizes in float32, collect's and
+# stream's (64 variants) decisions in float64 on the card against the
+# CPU, in BENCH13_WORKERS spawned workers; the wall-clock jobs then run
+# alone. A CPU rehearsal sets BENCH13_DEVICE "cpu" and BENCH13_SMOKE
+# (the scripts' smoke sizes).
+BENCH13_WORKERS = 6
+BENCH13_DEVICE = "cuda"
+BENCH13_SMOKE = False
 
 # H100 SXM peaks (NVIDIA data sheet; the special-function rate is 16
 # results per clock per SM for compute capability 9.0, at the 1.98 GHz
@@ -3220,6 +3237,242 @@ def phase_12(card) -> dict:
     return per_cycle
 
 
+def bench13_job(name: str, device: str, dtype_name: str, smoke: bool):
+    """One phase-13 job in a worker process: (name, device, dtype, result,
+    published decisions per run, launches, wall s). The launch counts are
+    set to 0 just before the job and read just after."""
+    import logging
+
+    import bench_torch_collect as bc
+    import bench_torch_fuse as bf
+    import bench_torch_profile as bp
+    import bench_torch_stream as bs
+    import bench_torch_streamchaos as bx
+    import bench_torch_streamload as bl
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    torch.set_num_threads(1)
+    quiet_wva_loggers(logging.CRITICAL)
+    on = {"device": device, "dtype": getattr(torch, dtype_name)}
+    kubes: list = []
+
+    def capture(module):
+        orig = module.build_cluster
+
+        def spy(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            kubes.append(out[0])
+            return out
+
+        module.build_cluster = spy
+
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    if name == "collect":
+        result = bc.run(64 if smoke else bc.N_VARIANTS, **on)
+    elif name == "collect-decisions":
+        capture(bc)
+        result = {mode: bc.timed_cycle(mode, 64 if smoke else
+                                       bc.N_VARIANTS, **on)
+                  for mode in ("on", "off")}
+    elif name == "profile":
+        result = bp.run(smoke, **on)
+    elif name == "fuse":
+        result = bf.run(smoke, **on)
+    elif name == "stream-decisions":
+        capture(bs)
+        result = bs.run(64, 8, 10, 3, **on)
+    elif name == "chaos-sim":
+        result = {"flood": bx.flood_phase(315.0 if smoke else 0.0, **on),
+                  "restart": bx.restart_phase(300.0 if smoke else 0.0, **on)}
+    elif name == "walls":
+        # the three wall-clock budgets, one after another
+        result = {
+            "stream": (bs.run(64, 8, 10, 3, **on) if smoke else bs.run(**on)),
+            "streamload": (bl.run(16, 20, 15, smoke=True, **on) if smoke
+                           else bl.run(**on)),
+            "wire": (bx.wire_phase(32, 4, 6, 2, 24, **on) if smoke
+                     else bx.wire_phase(**on))}
+    else:
+        raise ValueError(name)
+    wall = time.perf_counter() - t0
+    published = [sorted((va.metadata.name,
+                         va.status.desired_optimized_alloc.accelerator,
+                         va.status.desired_optimized_alloc.num_replicas)
+                        for va in k.list_variant_autoscalings())
+                 for k in kubes]
+    return (name, device, dtype_name, result, published, dict(bk.launches),
+            wall)
+
+
+def launch_dicts(out, path="") -> list:
+    """Every (path, kernel_launches) summary inside a script's result."""
+    found = []
+    if isinstance(out, dict):
+        for k, v in out.items():
+            if k == "kernel_launches":
+                found.append((path or "run", v))
+            else:
+                found += launch_dicts(v, f"{path}{k}.")
+    return found
+
+
+def hold_launches(label, out) -> dict:
+    """Raise unless, on the card, every reconcile cycle or micro-cycle of
+    `out` that sized (read a decision back) launched B1, never B2 (no
+    p95 class in these fleets), and every fused one read back exactly
+    once (one sizing group); returns the launches over them, in all and
+    per cycle."""
+    on_card = BENCH13_DEVICE == "cuda"
+    cycles = b1 = b2 = sized = 0
+    for path, k in launch_dicts(out):
+        if on_card and k["sizing_cycles_with_B1"] != k["sizing_cycles"]:
+            raise AssertionError(f"13 {label} {path}: B1 was not launched "
+                                 f"in every cycle that sized: {k}")
+        if k["B2"]:
+            raise AssertionError(f"13 {label} {path}: B2 launched on a "
+                                 f"mean-SLO fleet: {k}")
+        if "staged" not in path and k["d2h_per_sizing_cycle"] not in ([1],
+                                                                       []):
+            raise AssertionError(f"13 {label} {path}: not one readback "
+                                 f"per sizing group per cycle: {k}")
+        cycles += k["cycles"]
+        b1 += k["B1"]
+        b2 += k["B2"]
+        sized += k["sizing_cycles"]
+    if sized < 1:
+        raise AssertionError(f"13 {label}: no cycle sized")
+    return {"B1": b1, "B2": b2, "cycles": cycles, "sizing_cycles": sized,
+            "B1_per_cycle": b1 / cycles, "B2_per_cycle": b2 / cycles}
+
+
+def hold_checks(label, fails, budgets) -> list:
+    """Raise on a failed invariant; return each wall-clock budget with
+    "met" or "not met" (a budget not met is a finding, not a failure)."""
+    if fails:
+        raise AssertionError(f"13 {label}: invariants failed: {fails}")
+    return [{**b, "met": "met" if b["met"] else "not met"} for b in budgets]
+
+
+def phase_13(card) -> dict:
+    """Phase 13: the six ports of the cycle and event-path benchmarks at
+    the JAX scripts' full sizes in float32 on the card (collect, profile,
+    fuse, the twins of streamchaos), with collect's and stream's
+    decisions in float64 on the card and the CPU, in BENCH13_WORKERS
+    spawned workers; then the three wall-clock jobs (bench_torch_stream,
+    the throughput phase of bench_torch_streamload, the wire phase of
+    bench_torch_streamchaos), one after another in one worker, with
+    nothing beside them. Returns B1/B2 per cycle of each script."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import bench_torch_fuse as bf
+    import bench_torch_streamchaos as bx
+    import bench_torch_streamload as bl
+
+    dev, smoke = BENCH13_DEVICE, BENCH13_SMOKE
+    jobs = [("collect", dev, "float32"), ("profile", dev, "float32"),
+            ("fuse", dev, "float32"), ("chaos-sim", dev, "float32")]
+    jobs += [(name, d, "float64") for name in ("collect-decisions",
+                                               "stream-decisions")
+             for d in (dev, "cpu")]
+    pool = ProcessPoolExecutor(
+        BENCH13_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        pending = [pool.submit(bench13_job, *job, smoke) for job in jobs]
+        results = [p.result(timeout=900) for p in pending]
+        results.append(pool.submit(bench13_job, "walls", dev, "float32",
+                                   smoke).result(timeout=900))
+    finally:
+        workers = list((pool._processes or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in workers:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=30)
+    by = {(n, d, dt): (result, published, launched, wall)
+          for n, d, dt, result, published, launched, wall in results}
+    beside = [j[0] + ("" if j[1] == dev else "@cpu") + "/" + j[2]
+              for j in jobs]
+    per_cycle = {}
+
+    def line(script, job, out, budgets=(), **extra):
+        """The script's JSON line: its launches over the cycles it
+        reports (counter differences around each), the job's launches
+        (counted from 0 over the whole job), its budgets and result."""
+        n = hold_launches(script, out)
+        per_cycle[script] = {"B1": n["B1_per_cycle"],
+                             "B2": n["B2_per_cycle"]}
+        _r, _p, launched, wall = by[job]
+        log(json.dumps({"phase": "13", "card": card, "script": script,
+                        "launches": n, "job": job[0],
+                        "job_launches": {"B1": launched["mean"],
+                                         "B2": launched["tail"]},
+                        "budgets": list(budgets), "job_wall_s": wall,
+                        **extra, "result": out}))
+
+    out = by[("collect", dev, "float32")][0]
+    line("bench_torch_collect", ("collect", dev, "float32"), out,
+         beside=beside)
+    ref, ref_pub, _, cpu_wall = by[("collect-decisions", "cpu", "float64")]
+    mine, pub, _, card_wall = by[("collect-decisions", dev, "float64")]
+    counts = ("prom_queries", "kube_lists", "kube_gets")
+    for mode in ("on", "off"):
+        if {k: mine[mode][k] for k in counts} \
+                != {k: ref[mode][k] for k in counts}:
+            raise AssertionError(f"13 collect {mode}: float64 counts differ "
+                                 f"between the card and the CPU")
+    if pub != ref_pub or len(pub) != 2:
+        raise AssertionError("13 collect: float64 decisions on the card "
+                             "differ from the CPU's")
+    hold_launches("collect-decisions", mine)
+    log(json.dumps({"phase": "13", "card": card,
+                    "script": "bench_torch_collect", "dtype": "float64",
+                    "equal_to_cpu": True, "modes": ["on", "off"],
+                    "variants": len(pub[0]), "wall_s_card": card_wall,
+                    "wall_s_cpu": cpu_wall}))
+
+    job = ("profile", dev, "float32")
+    line("bench_torch_profile", job, by[job][0], beside=beside)
+    job = ("fuse", dev, "float32")
+    line("bench_torch_fuse", job, by[job][0],
+         hold_checks("fuse", *bf.check(by[job][0])), beside=beside)
+
+    ref, ref_pub, _, cpu_wall = by[("stream-decisions", "cpu", "float64")]
+    mine, pub, _, card_wall = by[("stream-decisions", dev, "float64")]
+    if pub != ref_pub or len(pub) != 1 \
+            or mine["decision_check"] != ref["decision_check"] \
+            or mine["events"] != ref["events"]:
+        raise AssertionError("13 stream: float64 decisions on the card "
+                             "differ from the CPU's")
+    hold_launches("stream-decisions", mine)
+    log(json.dumps({"phase": "13", "card": card,
+                    "script": "bench_torch_stream", "dtype": "float64",
+                    "equal_to_cpu": True, "variants": len(pub[0]),
+                    "events": mine["events"], "wall_s_card": card_wall,
+                    "wall_s_cpu": cpu_wall}))
+
+    walls = ("walls", dev, "float32")
+    timed = by[walls][0]
+    alone = "alone, after the other jobs ended"
+    if not timed["stream"]["decision_check"]["resized_from_push"]:
+        raise AssertionError("13 stream: the pushes did not re-size")
+    line("bench_torch_stream", walls, timed["stream"], beside=alone)
+    load_out = timed["streamload"]
+    if smoke:
+        load_out["smoke"] = True
+    line("bench_torch_streamload", walls, load_out,
+         hold_checks("streamload", *bl.check(load_out)), beside=alone)
+    sim = ("chaos-sim", dev, "float32")
+    chaos = {"bench": "streamchaos", "lag_budget_ms": bx.LAG_BUDGET_MS,
+             "value": timed["wire"]["p99_ms"], **by[sim][0],
+             "wire": timed["wire"]}
+    line("bench_torch_streamchaos", sim, chaos,
+         hold_checks("streamchaos", *bx.check(chaos)),
+         beside=f"flood and restart beside {beside}; wire {alone}")
+    return per_cycle
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3465,6 +3718,17 @@ def main() -> int:
         row["launches_per_closed_loop_cycle"] = {
             key: n[row["name"]] for key, n in loops.items()}
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    log("phase 13: the cycle and event-path benchmarks (bench_torch_collect, "
+        "_profile, _fuse, _stream, _streamload, _streamchaos) on the card")
+    gc.collect()
+    t13 = time.perf_counter()
+    with env("WVA_NATIVE_KERNEL", "false"):
+        benches = phase_13(card)
+    for row in rows:
+        row["launches_per_phase13_cycle"] = {
+            script: n[row["name"]] for script, n in benches.items()}
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -14,6 +14,7 @@ rtol 1e-3 (mean form) and 2e-3 (tail form).
 import numpy as np
 import pytest
 import torch
+from bench_parity import capture_kubes, published
 
 from workload_variant_autoscaler_tpu_torch.ops import batched as tb
 from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as tk
@@ -921,3 +922,62 @@ def test_bench_torch_on_card(card):
     e2e = bt.e2e_stage(16, 2, device=card)
     assert e2e["backends_agree"] is True
     assert tk.launches["mean"] > 0 and tk.launches["tail"] > 0
+
+
+def bench_script(name):
+    """A root bench_torch_* script (root_scripts puts the root on the
+    path)."""
+    import importlib
+
+    root_scripts()
+    return importlib.import_module(name)
+
+
+def held_b1(k):
+    assert k["sizing_cycles"] > 0
+    assert k["sizing_cycles_with_B1"] == k["sizing_cycles"]
+    assert k["B2"] == 0 and k["d2h_per_sizing_cycle"] == [1]
+
+
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_bench_collect_on_card_equals_cpu_float64(card, monkeypatch, mode):
+    """bench_torch_collect.timed_cycle at 64 variants in float64: the
+    card's counts and published decisions equal the CPU's, and every
+    cycle that sized launched B1."""
+    bc = bench_script("bench_torch_collect")
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    kubes = capture_kubes(monkeypatch, bc)
+    ref = bc.timed_cycle(mode, 64, device="cpu", dtype=torch.float64)
+    mine = bc.timed_cycle(mode, 64, device=card, dtype=torch.float64)
+    keys = ("prom_queries", "kube_lists", "kube_gets")
+    assert {k: mine[k] for k in keys} == {k: ref[k] for k in keys}
+    assert published(kubes[1]) == published(kubes[0])
+    held_b1(mine["kernel_launches"])
+
+
+def test_bench_stream_on_card_equals_cpu_float64(card, monkeypatch):
+    """bench_torch_stream.run(64, 8, 10, 3) in float64: the micro-cycles
+    on the card (B1 launched from the consumer thread) publish what the
+    CPU's do."""
+    bs = bench_script("bench_torch_stream")
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    kubes = capture_kubes(monkeypatch, bs)
+    ref = bs.run(64, 8, 10, 3, device="cpu", dtype=torch.float64)
+    mine = bs.run(64, 8, 10, 3, device=card, dtype=torch.float64)
+    assert published(kubes[1]) == published(kubes[0])
+    assert mine["decision_check"] == ref["decision_check"]
+    held_b1(mine["kernel_launches"])
+
+
+def test_bench_fuse_smoke_on_card(card):
+    """bench_torch_fuse --smoke on the card in float32: one readback per
+    fused cycle, no retrace, B1 in every cycle that sized; and the 4096
+    fleet's analyze + optimize at 512 servers launches B1 each cycle."""
+    bf = bench_script("bench_torch_fuse")
+    out = bf.run(True, device=card)
+    assert bf.check(out) == ([], [])
+    held_b1(out["kernel_launches"])
+    held_b1(out["steady_state"]["kernel_launches"])
+    fleet = bf.fleet_4096(n=512, device=card)
+    held_b1(fleet["kernel_launches"])
+    assert fleet["unique_lanes"] == 7

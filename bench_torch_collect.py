@@ -27,12 +27,12 @@ cycle ran (bench_torch_loop.where: the card's name and power limit, the
 dtype, the engine backend) with each mode's kernel_launches (B1/B2
 launches and sizing readbacks per reconcile cycle, from the port's
 counters). It writes the line to PATH only when `--out` is given, and
-never over an existing BENCH_*.json (those are the JAX package's CPU
-records).
+never to a BENCH_*.json (those are the JAX package's CPU records) or under
+tests/fixtures/.
 
 This module also holds what the other bench_torch_* ports of the cycle
 and event-path benchmarks share: `knobs`, `cycle_launches`,
-`launch_summary`, `parse_args` and `emit`.
+`launch_summary`, `parse_args`, `refuse_output` and `emit`.
 """
 
 from __future__ import annotations
@@ -157,19 +157,31 @@ def launch_summary(rows) -> dict:
 
 def parse_args(prog: str, argv, smoke: bool = False):
     """The shared CLI: `--device` (default cuda; raises without CUDA),
-    `--out PATH` (refused up front when it names an existing
-    BENCH_*.json) and, where the JAX script has one, `--smoke`."""
+    `--out PATH` (refused up front by `refuse_output`) and, where the
+    JAX script has one, `--smoke`."""
     parser = argparse.ArgumentParser(prog=prog)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--out", default=None)
     if smoke:
         parser.add_argument("--smoke", action="store_true")
     opts = parser.parse_args(argv)
-    if opts.out and Path(opts.out).name.startswith("BENCH_") \
-            and Path(opts.out).exists():
-        parser.error(f"{opts.out} exists: the BENCH_*.json records are "
-                     "the JAX package's and are never overwritten")
+    refuse_output(parser, opts.out)
     return opts
+
+
+def refuse_output(parser, path) -> None:
+    """Exit 2 (`parser.error`) when `path` names a BENCH_*.json (the JAX
+    package's records) or lies under tests/fixtures/ (its fixtures)."""
+    if not path:
+        return
+    parts = Path(path).resolve().parts
+    if parts[-1].startswith("BENCH_") and parts[-1].endswith(".json"):
+        parser.error(f"{path}: the BENCH_*.json records are the JAX "
+                     "package's and are never overwritten")
+    if any(parts[i:i + 2] == ("tests", "fixtures")
+           for i in range(len(parts) - 1)):
+        parser.error(f"{path}: tests/fixtures/ holds the JAX package's "
+                     "fixtures and is never written")
 
 
 def emit(out: dict, path: str | None, fails=(), budgets=()) -> int:

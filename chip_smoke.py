@@ -19,7 +19,7 @@ width and holds each against its reference (phase 6), then drives the
 hierarchical engine (super-shards, staggered forced-full) at fleet
 scale, unlimited and in limited mode, holds every cycle against a
 from-scratch flat engine, restarts it from its checkpoint, and times it
-against the flat engine up to 16384 variants (phase 7), then drives the
+against the flat engine at 4096 variants (phase 7), then drives the
 controller's reconcile cycle (`Reconciler.reconcile()`: collect from a
 FakePromAPI, analyze through the engines and the kernels, optimize,
 publish to an InMemoryKube) at 512 VAs x 8 slices, in limited mode, and
@@ -33,7 +33,8 @@ from its checkpoint, and the controller process itself
 mode, fed by pushes, scraped until every VA's published replicas equal a
 polled reference, stopped with SIGTERM) (phase 9), then runs the
 goodput twin (`emulator.twin.run_scenario`: the real Reconciler through
-every library scenario in simulated time, full duration) on the card,
+the streaming and adversarial library scenarios and flash-crowd in
+simulated time, full duration; phase 14 runs the other five) on the card,
 three scenarios in float64 against the CPU and one rerun byte for byte,
 and the capacity planner on the card against the CPU and as its CLI
 (phase 10), then builds the native host library and holds the native
@@ -55,10 +56,19 @@ _profile, _fuse, _stream, _streamload, _streamchaos) at the JAX
 scripts' full sizes, holds their invariants, B1 in every cycle that
 sized, and collect's and stream's decisions in float64 on the card
 against the CPU, and prints their wall-clock budgets as met or not met
-(phase 13). Phases 1-10, 12 and 13 pin WVA_NATIVE_KERNEL=false, so
-their CPU references stay on the batched path. It prints one JSON line
-per phase-8 and phase-9 fleet, per phase-10 run, per phase-11 part, per
-phase-12 run and per phase-13 script,
+(phase 13), then runs the engine-scale and goodput-scoreboard benchmarks
+(bench_torch_goodput, _goodput_live and _adversary at full size in
+float32, the adversary's rerun in another process byte for byte, four
+of them in float64 on the card against the CPU, then bench_torch_shard
+and bench_torch_hier at full sizes alone: the sharded boundary's one
+readback per cycle, sharded against unsharded decisions, the stagger, a
+warm restart at 32768 variants in fresh processes), holds their
+invariants and B1 in every cycle that sized, and prints their budgets
+as met or not met (phase 14). Phases 1-10 and 12-14 pin
+WVA_NATIVE_KERNEL=false, so their CPU references stay on the batched
+path. It prints one JSON line per phase-8 and phase-9 fleet, per
+phase-10 run, per phase-11 part, per phase-12 run and per phase-13 and
+phase-14 script,
 one for the kernels and a final status line. Every phase raises on
 failure; the script exits non-zero when CUDA is absent or any check
 fails.
@@ -103,21 +113,16 @@ CAPACITY_CHANGE_AT, GROW_AT, N_GROW = 15, 22, 16
 # shards of the default 1024), HIER_CYCLES churn cycles, forced full
 # every HIER_FULL_EVERY cycles; the limited churn turns scarce at cycle
 # HIER_SCARCE_FROM; 7b checkpoints every HIER_CKPT_EVERY cycles and
-# restarts after cycle HIER_RESTART_AFTER. 7c: FLEET_VARIANTS variants
-# (16 shards) for FLEET_CYCLES cycles at the seam's defaults (forced
-# full every 32 cycles, a checkpoint every 8), a persistent flat engine
-# for FLAT_CYCLES cycles and FLAT_REPS from-scratch flat cycles. The
-# limited fleet pins variant i to a slice of GENERATIONS[i % 3].
+# restarts after cycle HIER_RESTART_AFTER. The limited fleet pins
+# variant i to a slice of GENERATIONS[i % 3]. Larger fleets are phase
+# 14c's (bench_torch_hier: 8192-32768 variants, hierarchical against
+# flat, a restart in fresh processes).
 HIER_VARIANTS = 4096
 HIER_CYCLES = 12
 HIER_FULL_EVERY = 8
 HIER_SCARCE_FROM = 7
 HIER_CKPT_EVERY = 4
 HIER_RESTART_AFTER = 8
-FLEET_VARIANTS = 16384
-FLEET_CYCLES = 11
-FLAT_CYCLES = 4
-FLAT_REPS = 2
 GENERATIONS = ("v5e", "v5p", "v6e")
 
 # phase 8: the reconcile cycle (Reconciler.reconcile) on the card, on a
@@ -175,9 +180,10 @@ STREAM_REFERENCE = (("WVA_STREAM", "off"), ("WVA_SOLVE_FULL_EVERY", "1"))
 PROCESS_ENV: dict = {}
 PROCESS_READY_S = 300.0
 
-# phase 10: the goodput twin and the planner on the card. 10a: every
-# library scenario (SCENARIOS, STREAMING_SCENARIOS, ADVERSARIAL_SCENARIOS)
-# at full duration in float32, in this process; 10b: TWIN_F64 at full
+# phase 10: the goodput twin and the planner on the card. 10a: the
+# library's STREAMING_SCENARIOS and ADVERSARIAL_SCENARIOS and TWIN_RERUN
+# at full duration in float32, in this process (the other SCENARIOS run
+# in phase 14a, bench_torch_goodput); 10b: TWIN_F64 at full
 # duration in float64, on the card against the port on the CPU, and 10c:
 # TWIN_RERUN again on the card in float32 against 10a's run, both in
 # TWIN_WORKERS worker processes started alongside 10a; 10d: the planner
@@ -238,6 +244,28 @@ LOOP_DEVICE = "cuda"
 BENCH13_WORKERS = 6
 BENCH13_DEVICE = "cuda"
 BENCH13_SMOKE = False
+
+# phase 14: the engine-scale and goodput-scoreboard benchmarks through the
+# port's root scripts. 14a, simulated time in float32 on the card, in
+# BENCH14_WORKERS spawned workers: bench_torch_goodput and
+# bench_torch_goodput_live over the six library scenarios at full
+# duration (a job each), bench_torch_adversary's search at its defaults
+# and its same-seed rerun (a worker each), then its hardened run and
+# promotion; 14b, float64 on the card against the CPU: the adversary and
+# goodput-live smokes, bench_torch_shard's churn, bench_torch_hier's
+# smoke; 14c, wall clock, alone: bench_torch_shard at full sizes on an
+# 8-entry lane mesh, bench_torch_hier at full sizes with no mesh (the
+# restart leg at 32768 in fresh processes), and bench_torch_hier at
+# 8192 on an 8-entry mesh. A CPU rehearsal sets BENCH14_DEVICE "cpu" and
+# BENCH14_SMOKE (smoke sizes, abbreviated scenarios).
+BENCH14_WORKERS = 6
+BENCH14_DEVICE = "cuda"
+BENCH14_SMOKE = False
+BENCH14_MESH = 8
+# the JAX package's committed search record (read as a file, compared
+# for information only: float32 decisions on the card may take another
+# path)
+ADVERSARY_RECORD = "BENCH_adversary_r14.json"
 
 # H100 SXM peaks (NVIDIA data sheet; the special-function rate is 16
 # results per clock per SM for compute capability 9.0, at the 1.98 GHz
@@ -1164,127 +1192,11 @@ def hier_churn(label, fleet, seed, caps=None, restart_path=None,
     return runs
 
 
-def timed_method(obj, name: str) -> list:
-    """Wrap obj.<name> (on the instance) to append each call's ms to the
-    returned list."""
-    spent, orig = [], getattr(obj, name)
-
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = orig(*args, **kwargs)
-        spent.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    setattr(obj, name, timed)
-    return spent
-
-
-def timed_saves(engine) -> list:
-    """Time every checkpoint save of `engine` (finish_cycle calls
-    maybe_checkpoint each cycle; it saves every checkpoint_every-th):
-    a list of (whole save ms, of which building the payload ms)."""
-    saves = []
-    built = timed_method(engine, "_checkpoint_payload")
-    orig = engine.maybe_checkpoint
-
-    def timed():
-        before = engine.ckpt_events["save"]
-        t0 = time.perf_counter()
-        orig()
-        if engine.ckpt_events["save"] > before:
-            saves.append(((time.perf_counter() - t0) * 1e3, built[-1]))
-
-    engine.maybe_checkpoint = timed
-    return saves
-
-
-def fleet_scale(workdir):
-    """Phase 7c: FLEET_VARIANTS variants x 8 slices, unlimited, through
-    the engine the seam gives by default (`_solve_engine`, with a
-    checkpoint path): FLEET_CYCLES churn cycles (the first all forced,
-    then steady, a shard forced full on the cycles its stagger phase
-    comes due), a warm restart from the checkpoint of the engine's
-    first save against a cold start on that cycle's fleet, a persistent
-    flat engine over the first FLAT_CYCLES cycles and FLAT_REPS
-    from-scratch flat cycles on the last fleet (each must decide as the
-    hierarchical engine did). Returns the hierarchical runs, the restart
-    records (how -> (ms to build the engine, ms to its first decision,
-    timed_cycle's result, checkpoint events, ms of lane digests in the
-    cycle)), the flat runs (cycle,
-    timed_cycle's result), the saves and the checkpoint's size."""
-    from workload_variant_autoscaler_tpu_torch import IncrementalSolveEngine
-    from workload_variant_autoscaler_tpu_torch.controller import (
-        SolveEngineSelector)
-
-    fleet = build_fleet(FLEET_VARIANTS, SEED + 5)
-    path = os.path.join(workdir, "fleet.ckpt")
-    knobs = {"WVA_ARENA_CHECKPOINT": path}
-    engine = SolveEngineSelector()._solve_engine(knobs)
-    saves = timed_saves(engine)
-    runs, kept = [], {}
-    with cycle_clock() as spent:
-        for c, spec in hier_specs(fleet, FLEET_CYCLES, SEED + 6):
-            runs.append((c, timed_cycle(spec, engine, spent)))
-            if c in (engine.checkpoint_every, FLEET_CYCLES):
-                kept[c] = spec
-            r = runs[-1][1]
-            log(f"  fleet cycle {c:2d}: {r[1].shards} shards, "
-                f"{r[1].shards_solved} solved, "
-                f"{'full' if r[1].full else 'steady'} "
-                f"({r[1].modes.get('full', 0)} variants forced), lanes "
-                f"solved {r[1].lanes_solved} skipped {r[1].lanes_skipped}, "
-                f"launches {r[4]}; ms: {brief(r[3])}")
-        events = dict(engine.ckpt_events)
-        size = os.path.getsize(path)
-        del engine
-        gc.collect()
-        restart = {}
-        at = min(kept)
-        for how, cm in (("warm", knobs), ("cold", {})):
-            t0 = time.perf_counter()
-            eng = SolveEngineSelector()._solve_engine(cm)
-            built = (time.perf_counter() - t0) * 1e3
-            digests = timed_method(eng, "_lane_digest")
-            out = timed_cycle(kept[at], eng, spent)
-            restart[how] = (built, (time.perf_counter() - t0) * 1e3, out,
-                            dict(eng.ckpt_events), sum(digests))
-            del eng, out
-            gc.collect()
-        eng = IncrementalSolveEngine()
-        flat = [(c, timed_cycle(spec, eng, spent))
-                for c, spec in hier_specs(fleet, FLAT_CYCLES, SEED + 6)]
-        del eng
-        flat += [(FLEET_CYCLES, timed_cycle(
-            kept[FLEET_CYCLES], IncrementalSolveEngine(full_every=1), spent))
-            for _ in range(FLAT_REPS)]
-    want = {c: r[0] for c, r in runs}
-    warm, cold = restart["warm"][2], restart["cold"][2]
-    log(f"  restart on cycle {at}'s fleet: warm (checkpoint events "
-        f"{restart['warm'][3]}) restored={warm[1].restored} full="
-        f"{warm[1].full} lanes solved {warm[1].lanes_solved}; cold "
-        f"full={cold[1].full} lanes solved {cold[1].lanes_solved}")
-    for c, r in flat:
-        log(f"  fleet cycle {c:2d}, flat: {'full' if r[1].full else 'steady'}"
-            f", lanes solved {r[1].lanes_solved}; ms: {brief(r[3])}; "
-            f"equal={r[0] == want[c]}")
-    if not (warm[1].restored and not warm[1].full
-            and warm[1].lanes_solved == 0 and cold[1].full
-            and warm[0] == want[at] and cold[0] == want[at]
-            and all(r[0] == want[c] for c, r in flat)
-            and events["save"] >= 1 and events["save_error"] == 0
-            and restart["warm"][3]["restore"] == 1):
-        raise AssertionError(f"fleet scale: restart or flat check failed "
-                             f"(events {events}, {restart['warm'][3]})")
-    return runs, restart, flat, saves, size
-
-
-def hier_summary(card, unlimited_runs, limited_runs, fleet) -> None:
-    """Phase 7's summary: launches per hierarchical cycle, the steady
-    cycles at HIER_VARIANTS and FLEET_VARIANTS variants, hierarchical
-    against flat (the crossover on this card), and phase 7c's times, with
-    the card's name and power limit beside them. A steady cycle is any
-    cycle after the first; `quiet` ones have no shard forced full."""
-    runs, restart, flat, saves, size = fleet
+def hier_summary(card, unlimited_runs, limited_runs) -> None:
+    """Phase 7's summary: launches per hierarchical cycle and the steady
+    cycles at HIER_VARIANTS variants, hierarchical against flat, with the
+    card's name and power limit beside them. A steady cycle is any cycle
+    after the first; `quiet` ones have no shard forced full."""
 
     def parts(results):
         return brief({k: statistics.median(r[3][k] for r in results)
@@ -1299,63 +1211,38 @@ def hier_summary(card, unlimited_runs, limited_runs, fleet) -> None:
                if r[2] != "flat"]
         log(f"  launches (B1, B2) per hierarchical cycle, {label}, "
             f"{HIER_VARIANTS} variants: {per}")
-    per = [(r[4]["mean"], r[4]["tail"]) for _c, r in runs]
-    log(f"  launches (B1, B2) per hierarchical cycle, {FLEET_VARIANTS} "
-        f"variants: {per}")
 
-    for n, hier, flat_steady in (
-            (HIER_VARIANTS,
-             [r[3] for r in unlimited_runs if r[1] > 1 and r[2] == "hier"],
-             [r[3] for r in unlimited_runs if r[1] > 1 and r[2] == "flat"]),
-            (FLEET_VARIANTS, [r for c, r in runs if c > 1],
-             [r for c, r in flat if c > 1 and not r[1].full])):
-        quiet = [r for r in hier if not forced(r)]
-        shard = [r for r in hier if forced(r)]
-        log(f"  {card}: steady cycle at {n} variants, unlimited, median ms:")
-        log(f"    hierarchical, no shard forced ({len(quiet)} cycles, lanes "
-            f"solved {statistics.median(r[1].lanes_solved for r in quiet)})"
-            f": {parts(quiet)}")
-        if shard:
-            log(f"    hierarchical, a shard forced full ({len(shard)} cycles,"
-                f" {statistics.median(forced(r) for r in shard)} variants "
-                f"forced): {parts(shard)}; worst wall "
-                f"{max(r[3]['wall'] for r in shard):.3f}")
-        log(f"    flat ({len(flat_steady)} cycles, lanes solved "
-            f"{statistics.median(r[1].lanes_solved for r in flat_steady)}): "
-            f"{parts(flat_steady)}")
-        if not quiet or (n == FLEET_VARIANTS and not shard):
-            raise AssertionError(f"{n} variants: steady cycles with and "
-                                 f"without a shard forced full are needed")
+    hier = [r[3] for r in unlimited_runs if r[1] > 1 and r[2] == "hier"]
+    flat_steady = [r[3] for r in unlimited_runs
+                   if r[1] > 1 and r[2] == "flat"]
+    quiet = [r for r in hier if not forced(r)]
+    shard = [r for r in hier if forced(r)]
+    log(f"  {card}: steady cycle at {HIER_VARIANTS} variants, unlimited, "
+        f"median ms:")
+    log(f"    hierarchical, no shard forced ({len(quiet)} cycles, lanes "
+        f"solved {statistics.median(r[1].lanes_solved for r in quiet)})"
+        f": {parts(quiet)}")
+    if shard:
+        log(f"    hierarchical, a shard forced full ({len(shard)} cycles,"
+            f" {statistics.median(forced(r) for r in shard)} variants "
+            f"forced): {parts(shard)}; worst wall "
+            f"{max(r[3]['wall'] for r in shard):.3f}")
+    log(f"    flat ({len(flat_steady)} cycles, lanes solved "
+        f"{statistics.median(r[1].lanes_solved for r in flat_steady)}): "
+        f"{parts(flat_steady)}")
+    if not quiet:
+        raise AssertionError(f"{HIER_VARIANTS} variants: steady cycles "
+                             f"without a shard forced full are needed")
     lim = [r[3] for r in limited_runs if r[1] > 1 and r[2] != "flat"
            and not r[0].endswith("'")]
     log(f"  {card}: steady cycle at {HIER_VARIANTS} variants, limited "
         f"({LIMITED_POLICY}), hierarchical, median ms ({len(lim)} cycles): "
         f"{parts(lim)}")
 
-    full = [r for c, r in flat if r[1].full]
-    log(f"  {card}: {FLEET_VARIANTS} variants ({FLEET_VARIANTS * 8} lanes, "
-        f"{runs[0][1][1].shards} shards), unlimited, ms:")
-    log(f"    hierarchical first cycle (all shards forced): "
-        f"{brief(runs[0][1][3])}")
-    log(f"    flat forced-full cycle (a new engine's first cycle, median of "
-        f"{len(full)}): {parts(full)}")
-    for how in ("warm", "cold"):
-        built, total, out, _events, digests = restart[how]
-        log(f"    restart to first decision, {how}: {total:.3f} (engine "
-            f"built through the seam {built:.3f}, then one cycle: lanes "
-            f"solved {out[1].lanes_solved}, lane digests {digests:.3f}, "
-            f"{brief(out[3])})")
-    log(f"    checkpoint saves (whole save, of which the payload): "
-        f"{[(round(a, 3), round(b, 3)) for a, b in saves]} ms; file "
-        f"{size} bytes")
-    gcs = [r[3]["gc"] for _c, r in runs]
-    log(f"    gc per hierarchical cycle: median {statistics.median(gcs):.3f}"
-        f", max {max(gcs):.3f}")
-
 
 def hier_phase():
-    """Phase 7: 7a's two churns (7b's restart inside the limited one),
-    then 7c; returns hier_summary's arguments after the card line."""
+    """Phase 7: 7a's two churns (7b's restart inside the limited one);
+    returns hier_summary's arguments after the card line."""
     from workload_variant_autoscaler_tpu_torch import HierarchicalSolveEngine
     from workload_variant_autoscaler_tpu_torch.controller import (
         SolveEngineSelector)
@@ -1389,12 +1276,7 @@ def hier_phase():
     with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
         limited = hier_churn("7a(ii)", limited_fleet, SEED + 4, caps,
                              restart_path=os.path.join(d, "arena.ckpt"))
-        del limited_fleet
-        gc.collect()
-        log(f"  7c: {FLEET_VARIANTS} variants x 8 slices, unlimited, the "
-            f"seam's default engine with a checkpoint")
-        fleet = fleet_scale(d)
-    return unlimited, limited, fleet
+    return unlimited, limited
 
 
 def reconcile_cluster():
@@ -2596,6 +2478,8 @@ def twin_phase(card) -> dict:
         b1 = b2 = cycles = 0
         mine = {}
         for name, scenario in library.items():
+            if name in SCENARIOS and name != TWIN_RERUN:
+                continue        # phase 14a's bench_torch_goodput runs it
             kind = ("SCENARIOS" if name in SCENARIOS else "ADVERSARIAL"
                     if name in ADVERSARIAL_SCENARIOS else "STREAMING")
             bk.reset_launches()
@@ -2630,7 +2514,7 @@ def twin_phase(card) -> dict:
                 "reconcile_calls": len(walls), "wall_s": wall,
                 "reconcile_ms_median": statistics.median(walls),
                 "reconcile_ms_p95": pct(walls, 0.95)}))
-        log(f"  10a: {len(library)} scenarios in "
+        log(f"  10a: {len(library) - len(SCENARIOS) + 1} scenarios in "
             f"{time.perf_counter() - t10a:.1f} s")
         results = [p.result(timeout=900) for p in pending]
     finally:
@@ -3473,6 +3357,302 @@ def phase_13(card) -> dict:
     return per_cycle
 
 
+def bench14_job(name: str, device: str, dtype_name: str, arg, smoke: bool):
+    """One phase-14 job in a worker process: (name, device, dtype, arg,
+    result, launches, wall s). The launch counts are set to 0 just
+    before the job and read just after."""
+    import logging
+
+    import bench_torch_adversary as pa
+    import bench_torch_goodput as pg
+    import bench_torch_goodput_live as pv
+    import bench_torch_hier as ph
+    import bench_torch_shard as ps
+    from bench_torch_loop import where
+    from workload_variant_autoscaler_tpu_torch.emulator.adversary import (
+        DEFAULT_GENERATIONS, DEFAULT_POPULATION, DEFAULT_SEED)
+    from workload_variant_autoscaler_tpu_torch.emulator.scenarios import (
+        SCENARIOS)
+    from workload_variant_autoscaler_tpu_torch.emulator.scenarios.adversarial \
+        import DURATION_S
+    from workload_variant_autoscaler_tpu_torch.ops import bisect_kernel as bk
+
+    torch.set_num_threads(1)
+    quiet_wva_loggers(logging.CRITICAL)
+    on = {"device": device, "dtype": getattr(torch, dtype_name)}
+    search = ((DEFAULT_SEED, 1, 2, 60.0) if smoke else
+              (DEFAULT_SEED, DEFAULT_GENERATIONS, DEFAULT_POPULATION,
+               DURATION_S))
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    if name == "goodput":
+        score, launched, _wall = pg.run_one(arg, **on)
+        result = {"score": score, "kernel_launches": launched}
+    elif name == "live":
+        result = pv.run_one(arg, SCENARIOS[arg], **on)
+    elif name == "search":
+        result = pa.run_search(*search, **on)
+    elif name == "harden":
+        first, second, hand_min = arg
+        result = pa.finish(first, second, hand_min, where(**on), **on)
+    elif name == "adv-smoke":
+        result = pa.run_search(DEFAULT_SEED, pa.SMOKE_GENERATIONS,
+                               pa.SMOKE_POPULATION, pa.SMOKE_DURATION_S,
+                               **on)
+    elif name == "live-smoke":
+        result = pv.run(True, **on)
+    elif name == "shard-churn":
+        result = ps.churn_run(ps.SMOKE_SIZES[1] if smoke else ps.CHURN_N,
+                              ps.lane_mesh(BENCH14_MESH, device), **on)
+    elif name == "hier-smoke":
+        result = ph.run(True, **on)
+    elif name == "walls":
+        # the wall-clock jobs, one after another, nothing beside them
+        result = {"shard": ps.run(smoke, BENCH14_MESH, **on),
+                  "hier": ph.run(smoke, None, **on),
+                  "hier_mesh": ph.measure(
+                      ph.SMOKE_SIZES[:1] if smoke else ph.SIZES[:1],
+                      ps.lane_mesh(BENCH14_MESH, device),
+                      ph.SMOKE_SHARD_TARGET if smoke else ph.SHARD_TARGET,
+                      **on)}
+    else:
+        raise ValueError(name)
+    wall = time.perf_counter() - t0
+    return name, device, dtype_name, arg, result, dict(bk.launches), wall
+
+
+def hold14(label, out) -> dict:
+    """The launches over every cycle of `out` that reports them: raises
+    unless, on the card, every cycle that sized (read a decision back)
+    launched B1; B2 is counted, not assumed 0."""
+    on_card = BENCH14_DEVICE == "cuda"
+    cycles = b1 = b2 = sized = 0
+    for path, k in launch_dicts(out):
+        if on_card and k["sizing_cycles_with_B1"] != k["sizing_cycles"]:
+            raise AssertionError(f"14 {label} {path}: B1 was not launched "
+                                 f"in every cycle that sized: {k}")
+        cycles += k["cycles"]
+        b1 += k["B1"]
+        b2 += k["B2"]
+        sized += k["sizing_cycles"]
+    if sized < 1:
+        raise AssertionError(f"14 {label}: no cycle sized")
+    return {"B1": b1, "B2": b2, "cycles": cycles, "sizing_cycles": sized,
+            "B1_per_cycle": b1 / cycles, "B2_per_cycle": b2 / cycles}
+
+
+def without_walls(out):
+    """`out` without its host-clock values (walls, ms, shares) and the
+    keys that name where it ran: what float64 on the card and on the CPU
+    must hold equal."""
+    drop = {"wall_s", "device", "backend", "kernel_launches", "mesh_cards",
+            "first_full_pass_ms", "forced_wall_ms_max", "window_walls_ms",
+            "forced_full_ms_min", "cold_first_decision_ms",
+            "warm_restart_to_first_decision_ms", "first_cycle_ms"}
+    if isinstance(out, dict):
+        return {k: without_walls(v) for k, v in out.items() if k not in drop}
+    if isinstance(out, list):
+        return [without_walls(v) for v in out]
+    return out
+
+
+def run14(pool, jobs, smoke: bool) -> dict:
+    """The jobs' results by (name, device, dtype, arg; None for the
+    hardened run's): (result, launches, wall s). A worker that dies fails
+    its future, and so the phase."""
+    done = [p.result(timeout=1500) for p in
+            [pool.submit(bench14_job, *job, smoke) for job in jobs]]
+    return {(n, d, dt, None if n == "harden" else a): (r, launched, wall)
+            for n, d, dt, a, r, launched, wall in done}
+
+
+def phase_14(card) -> dict:
+    """Phase 14 (14a-14c, see BENCH14_WORKERS). Returns B1/B2 per cycle
+    of each script for the kernels line."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import bench_torch_adversary as pa
+    import bench_torch_goodput as pg
+    from workload_variant_autoscaler_tpu_torch.emulator.scenarios import (
+        SCENARIOS)
+
+    dev, smoke = BENCH14_DEVICE, BENCH14_SMOKE
+    names = list(SCENARIOS)
+    sim = [("search", dev, "float32", 0), ("search", dev, "float32", 1)]
+    sim += [(kind, dev, "float32", n) for kind in ("goodput", "live")
+            for n in names]
+    sim += [(kind, d, "float64", None) for kind in (
+        "adv-smoke", "live-smoke", "shard-churn", "hier-smoke")
+        for d in (dev, "cpu")]
+    pool = ProcessPoolExecutor(
+        BENCH14_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    t0 = time.perf_counter()
+    try:
+        by = run14(pool, sim, smoke)
+        t_sim = time.perf_counter() - t0
+        scores = {n: by[("goodput", dev, "float32", n)][0]["score"]
+                  for n in names}
+        hand = None if smoke else pg.compose(scores)
+        first = by[("search", dev, "float32", 0)][0]
+        second = by[("search", dev, "float32", 1)][0]
+        hand_min = 1.0 if smoke else pa.hand_library_min(hand)
+        t1 = time.perf_counter()
+        by.update(run14(pool, [("harden", dev, "float32",
+                                (first, second, hand_min))], smoke))
+        t_harden = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        by.update(run14(pool, [("walls", dev, "float32", None)], smoke))
+        t_walls = time.perf_counter() - t2
+    finally:
+        workers = list((pool._processes or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in workers:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=30)
+    per_cycle = {}
+
+    def line(script, part, out, job_launches, **extra):
+        n = hold14(f"{script} {part}", out)
+        per_cycle.setdefault(script, []).append(n)
+        log(json.dumps({"phase": "14", "card": card, "script": script,
+                        "part": part, "launches": n,
+                        "job_launches": job_launches, **extra}))
+
+    def launched(jobs):
+        return {"B1": sum(by[j][1]["mean"] for j in jobs),
+                "B2": sum(by[j][1]["tail"] for j in jobs)}
+
+    # 14a: the scoreboard, the live meter, the search
+    jobs = [("goodput", dev, "float32", n) for n in names]
+    line("bench_torch_goodput", "14a",
+         {n: by[j][0] for n, j in zip(names, jobs)}, launched(jobs),
+         dtype="float32", scenarios=len(names),
+         record=None if smoke else {k: v for k, v in hand.items()
+                                    if k != "scenarios"},
+         goodput={n: (None if smoke else scores[n]["goodput_fraction"])
+                  for n in names},
+         wall_s={n: by[j][2] for n, j in zip(names, jobs)})
+    jobs = [("live", dev, "float32", n) for n in names]
+    line("bench_torch_goodput_live", "14a",
+         {n: by[j][0] for n, j in zip(names, jobs)}, launched(jobs),
+         dtype="float32", equivalent=True,
+         scenarios=[{k: by[j][0][k] for k in ("scenario", "ticks",
+                                              "variants", "goodput_fraction",
+                                              "wall_s")} for j in jobs])
+    record = by[("harden", dev, "float32", None)][0]
+    search_jobs = [("search", dev, "float32", 0),
+                   ("search", dev, "float32", 1)]
+    line("bench_torch_adversary", "14a",
+         {"search": by[search_jobs[0]][0], "rerun": by[search_jobs[1]][0]},
+         launched(search_jobs), dtype="float32",
+         byte_identical_across_processes=record["deterministic"],
+         value=record["value"], budget=record["budget"],
+         evaluations=len(record["evaluations"]),
+         hand_library_min=record["hand_library_min"],
+         hardened_goodput=record["hardened_goodput"],
+         promoted=[{k: p[k] for k in ("name", "unhardened_goodput",
+                                      "hardened_goodput", "floor")}
+                   for p in record["promoted"]],
+         results=record["results"],
+         wall_s={"search": by[search_jobs[0]][2],
+                 "rerun": by[search_jobs[1]][2],
+                 "hardened_and_promote": by[("harden", dev, "float32",
+                                             None)][2]})
+    committed = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             ADVERSARY_RECORD)
+    with open(committed, encoding="utf-8") as f:
+        jax_record = json.load(f)
+    found = by[search_jobs[0]][0]["result"]
+    log(json.dumps({
+        "phase": "14a", "card": card, "information": "the float32 card "
+        "search against the JAX package's committed record (not a check)",
+        "worst_params_equal": found["worst"]["params"]
+        == jax_record["worst"]["params"],
+        "generation_worst_equal": found["generation_worst"]
+        == jax_record["generation_worst"],
+        "worst_goodput": [found["worst"]["goodput"],
+                          jax_record["worst"]["goodput"]]}))
+
+    # 14b: float64 on the card against the CPU
+    for kind, script in (("adv-smoke", "bench_torch_adversary"),
+                         ("live-smoke", "bench_torch_goodput_live"),
+                         ("shard-churn", "bench_torch_shard"),
+                         ("hier-smoke", "bench_torch_hier")):
+        mine, card_launched, card_wall = by[(kind, dev, "float64", None)]
+        ref, _l, cpu_wall = by[(kind, "cpu", "float64", None)]
+        if without_walls(mine) != without_walls(ref):
+            raise AssertionError(f"14b {kind}: float64 on the card differs "
+                                 f"from the CPU")
+        line(script, f"14b {kind}", mine,
+             {"B1": card_launched["mean"], "B2": card_launched["tail"]},
+             dtype="float64", equal_to_cpu=True, wall_s_card=card_wall,
+             wall_s_cpu=cpu_wall)
+
+    # 14c: wall clock, alone
+    walls, walls_launched, walls_wall = by[("walls", dev, "float32",
+                                            None)]
+    alone = "alone, after the other jobs ended"
+    shard = walls["shard"]
+    line("bench_torch_shard", "14c", shard,
+         {"B1": walls_launched["mean"], "B2": walls_launched["tail"]},
+         beside=alone, **{k: shard.get(k) for k in (
+             "mesh_entries", "mesh_cards", "value",
+             "reconcile_cycle_512_ms", "vs_512_reconcile_cycle", "budgets")},
+         steady_state={k: v for k, v in shard["steady_state"].items()
+                       if k != "decisions"},
+         walls={n: {side: w[side]["analyze_optimize_ms_p50"]
+                    for side in ("unsharded", "sharded")}
+                for n, w in shard["walls"].items()},
+         greedy={k: v for k, v in shard.get("greedy", {}).items()
+                 if k != "decisions"})
+    hier = walls["hier"]
+    line("bench_torch_hier", "14c", hier,
+         {"B1": walls_launched["mean"], "B2": walls_launched["tail"]},
+         beside=alone, **{k: hier.get(k) for k in (
+             "mesh_entries", "value", "forced_wall_32k_vs_8k", "budgets")},
+         walls={n: {"shards": w["hier"]["shards"],
+                    "first_full_pass_ms": w["hier"]["first_full_pass_ms"],
+                    "forced_wall_ms_max": w["hier"]["forced_wall_ms_max"],
+                    "forced_lanes_max_cycle":
+                        w["hier"]["forced_lanes_max_cycle"],
+                    "quiet_wall_ms_median": statistics.median(
+                        x for x, f in zip(w["hier"]["window_walls_ms"],
+                                          w["hier"]["forced_lanes"])
+                        if not f) if 0 in w["hier"]["forced_lanes"]
+                    else None,
+                    "flat_forced_full_ms_min":
+                        w["flat"]["forced_full_ms_min"]}
+                for n, w in hier["walls"].items()},
+         restart={k: v for k, v in hier["restart"].items()
+                  if k != "probes"},
+         probes={k: {x: v[x] for x in ("lanes_solved", "restored",
+                                       "first_cycle_ms", "import_torch_s",
+                                       "cuda_context_s", "startup_share")
+                     if x in v}
+                 for k, v in hier["restart"]["probes"].items()})
+    mesh = walls["hier_mesh"]
+    line("bench_torch_hier", f"14c {BENCH14_MESH}-entry mesh", mesh,
+         {"B1": walls_launched["mean"], "B2": walls_launched["tail"]},
+         beside=alone, mesh_entries=BENCH14_MESH,
+         walls={n: {"shards": w["hier"]["shards"],
+                    "forced_wall_ms_max": w["hier"]["forced_wall_ms_max"],
+                    "first_full_pass_ms": w["hier"]["first_full_pass_ms"],
+                    "flat_forced_full_ms_min":
+                        w["flat"]["forced_full_ms_min"]}
+                for n, w in mesh.items()})
+    log(f"  14: simulated-time jobs {t_sim:.1f} s ({len(sim)} jobs in "
+        f"{BENCH14_WORKERS} workers), hardened run and promotion "
+        f"{t_harden:.1f} s, wall-clock job {t_walls:.1f} s "
+        f"(in the worker {walls_wall:.1f} s)")
+    return {script: {"B1": sum(n["B1"] for n in ns)
+                     / sum(n["cycles"] for n in ns),
+                     "B2": sum(n["B2"] for n in ns)
+                     / sum(n["cycles"] for n in ns)}
+            for script, ns in per_cycle.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3729,6 +3909,18 @@ def main() -> int:
         row["launches_per_phase13_cycle"] = {
             script: n[row["name"]] for script, n in benches.items()}
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    log("phase 14: the engine-scale and goodput-scoreboard benchmarks "
+        "(bench_torch_shard, _hier, _goodput, _goodput_live, _adversary) "
+        "on the card")
+    gc.collect()
+    t14 = time.perf_counter()
+    with env("WVA_NATIVE_KERNEL", "false"):
+        scale = phase_14(card)
+    for row in rows:
+        row["launches_per_phase14_cycle"] = {
+            script: n[row["name"]] for script, n in scale.items()}
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

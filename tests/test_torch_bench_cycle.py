@@ -53,7 +53,11 @@ N_FUSE = 64         # bench_fuse.py's smoke fleet (512 -> 64)
 N_FLEET = 256       # the 4096-server fleet, reduced
 SCRIPTS = ("bench_torch_collect", "bench_torch_profile", "bench_torch_fuse",
            "bench_torch_stream", "bench_torch_streamload",
-           "bench_torch_streamchaos")
+           "bench_torch_streamchaos", "bench_torch_shard", "bench_torch_hier",
+           "bench_torch_goodput", "bench_torch_goodput_live",
+           "bench_torch_adversary")
+# measures the host CPU by design: no card, so no cuda default
+HOST_SCRIPTS = ("bench_torch_cpu_tail",)
 
 
 @pytest.fixture(autouse=True)
@@ -329,11 +333,12 @@ def test_cli_writes_out_only_when_asked(tmp_path, capsys):
 
 
 def test_imports_neither_jax_nor_the_reference_package():
-    """The six bench_torch_* ports of the cycle and event-path benchmarks
-    load neither JAX nor the reference package."""
+    """The bench_torch_* ports of the cycle, event-path, engine-scale and
+    goodput-scoreboard benchmarks load neither JAX nor the reference
+    package."""
     code = (
         "import sys\n"
-        f"import {', '.join(SCRIPTS)}\n"
+        f"import {', '.join(SCRIPTS + HOST_SCRIPTS)}\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'workload_variant_autoscaler_tpu'\n"

@@ -981,3 +981,67 @@ def test_bench_fuse_smoke_on_card(card):
     fleet = bf.fleet_4096(n=512, device=card)
     held_b1(fleet["kernel_launches"])
     assert fleet["unique_lanes"] == 7
+
+
+def held_mean(k):
+    """B1 in every cycle that sized, B2 never (mean-SLO classes only)."""
+    assert k["sizing_cycles"] > 0
+    assert k["sizing_cycles_with_B1"] == k["sizing_cycles"]
+    assert k["B2"] == 0
+
+
+def test_bench_shard_smoke_on_card(card):
+    """bench_torch_shard --smoke on an 8-entry lane mesh of the card in
+    float32: one readback per churn cycle, across the sharded boundary;
+    sharded decisions equal to unsharded; B1 in every cycle that sized."""
+    ps = bench_script("bench_torch_shard")
+    out = ps.run(True, 8, device=card)
+    assert out["mesh_entries"] == 8 and out["mesh_cards"] == 1
+    held_b1(out["steady_state"]["kernel_launches"])
+    for walls in out["walls"].values():
+        assert walls["decisions_equal"]
+        held_b1(walls["sharded"]["kernel_launches"])
+        held_b1(walls["unsharded"]["kernel_launches"])
+
+
+def test_bench_hier_smoke_on_card(card):
+    """bench_torch_hier --smoke on the card in float32: the stagger and the
+    in-process warm restart hold; B1 in every window cycle that sized."""
+    ph = bench_script("bench_torch_hier")
+    out = ph.run(True, device=card)
+    assert out["mesh_entries"] == 0
+    for walls in out["walls"].values():
+        held_b1(walls["hier"]["kernel_launches"])
+        assert sum(walls["hier"]["forced_lanes"]) == walls["hier"]["variants"]
+    assert out["restart"]["warm_lanes_solved"] < 512
+
+
+def test_bench_goodput_on_card(card, monkeypatch):
+    """bench_torch_goodput's flash-crowd scenario on the card in float32:
+    the record's shape, B1 in every twin cycle that sized."""
+    pg = bench_script("bench_torch_goodput")
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    record, _walls = pg.run(["flash-crowd"], device=card)
+    assert record["scenario_count"] == 1 and record["dtype"] == "float32"
+    held_mean(record["kernel_launches"]["flash-crowd"])
+
+
+def test_bench_goodput_live_smoke_on_card(card, monkeypatch):
+    """bench_torch_goodput_live --smoke on the card in float32: the twin's
+    meter equals the online meter exactly."""
+    pv = bench_script("bench_torch_goodput_live")
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    line = pv.run(True, device=card)
+    assert line["equivalent"] and line["ticks"] > 0
+    held_mean(line["kernel_launches"])
+
+
+def test_bench_adversary_smoke_on_card(card, monkeypatch):
+    """bench_torch_adversary --smoke on the card in float32: the search
+    runs its budget, B1 in every evaluation cycle that sized."""
+    pa = bench_script("bench_torch_adversary")
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    first = pa.run_search(14, pa.SMOKE_GENERATIONS, pa.SMOKE_POPULATION,
+                          pa.SMOKE_DURATION_S, device=card)
+    assert len(first["result"]["evaluations"]) == first["result"]["budget"]
+    held_mean(first["kernel_launches"])

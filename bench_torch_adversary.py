@@ -85,6 +85,8 @@ FLOOR_MARGIN = 0.05
 SMOKE_GENERATIONS = 1
 SMOKE_POPULATION = 2
 SMOKE_DURATION_S = 120.0
+# the keys of this script's records that time a run on the host's clock
+WALL_KEYS = frozenset({"wall_s"})
 
 
 def run_search(seed: int, generations: int, population: int,

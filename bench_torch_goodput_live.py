@@ -55,6 +55,8 @@ from workload_variant_autoscaler_tpu_torch.emulator.twin import run_scenario
 from workload_variant_autoscaler_tpu_torch.obs.goodput import GoodputMeter
 
 SMOKE_DURATION_S = 300.0
+# the keys of this script's records that time a run on the host's clock
+WALL_KEYS = frozenset({"wall_s"})
 
 
 def assert_equivalent(twin: GoodputMeter, online: GoodputMeter) -> int:

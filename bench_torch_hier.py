@@ -56,6 +56,7 @@ _IMPORT_TORCH_S = time.perf_counter() - _T_IMPORT
 
 from bench_torch_collect import emit, launch_summary  # noqa: E402
 from bench_torch_loop import where  # noqa: E402
+from bench_torch_shard import WALL_KEYS as SHARD_WALL_KEYS  # noqa: E402
 from bench_torch_shard import (  # noqa: E402
     BACKEND,
     budget,
@@ -90,6 +91,14 @@ FULL_EVERY = 16
 # the fleet size
 SHARD_TARGET = 4096
 EPSILON = 0.05
+# the keys of this script's records that time a run on the host's clock
+# (bench_torch_shard's and its own) or name the cards its mesh listed
+WALL_KEYS = SHARD_WALL_KEYS | frozenset({
+    "first_full_pass_ms", "forced_wall_ms_max", "window_walls_ms",
+    "forced_full_ms_min", "cold_first_decision_ms",
+    "warm_restart_to_first_decision_ms", "first_cycle_ms",
+    "import_torch_s", "cuda_context_s", "startup_share",
+    "forced_wall_32k_vs_8k"})
 
 
 def local_cards(device=None) -> int:
@@ -153,6 +162,16 @@ def flat_forced_walls(n: int, mesh, *, device=None, dtype=None) -> dict:
     return {"variants": n, "forced_full_ms_min": min(r[0] for r in runs),
             "decisions": sorted({r[2] for r in runs}),
             "kernel_launches": launch_summary([r[3] for r in runs])}
+
+
+def flat_decisions(n: int, mesh, *, device=None, dtype=None) -> str:
+    """The decisions of one from-scratch flat forced-full pass at the
+    hierarchical engine's EPSILON. The flat comparator's epsilon 0 sizes
+    the load unsnapped, so it may decide otherwise by design; this pass
+    snaps the load as the hierarchical engine does."""
+    engine = IncrementalSolveEngine(epsilon=EPSILON, full_every=1)
+    return _cycle(fleet_spec(n), engine, mesh,
+                  {"device": device, "dtype": dtype})[2]
 
 
 def _mk_engine(shard_target: int, ckpt=None) -> HierarchicalSolveEngine:
@@ -275,11 +294,20 @@ def restart_leg(n: int, shard_target: int = SHARD_TARGET,
 
 def measure(sizes, mesh, shard_target: int = SHARD_TARGET, *,
             device=None, dtype=None) -> dict:
+    """Hierarchical and flat forced-full walls per size; raises unless
+    every cycle of the stagger window decides as a from-scratch flat
+    forced-full pass at the same epsilon (flat_decisions; the fleet never
+    changes, so the window has one decision set)."""
     on = {"device": device, "dtype": dtype}
     out = {}
     for n in sizes:
-        out[str(n)] = {"hier": hier_forced_walls(n, mesh, shard_target, **on),
-                       "flat": flat_forced_walls(n, mesh, **on)}
+        hier = hier_forced_walls(n, mesh, shard_target, **on)
+        flat = flat_forced_walls(n, mesh, **on)
+        if hier["decisions"] != [flat_decisions(n, mesh, **on)]:
+            raise AssertionError(f"{n} variants: the hierarchical engine "
+                                 f"decided otherwise than the flat "
+                                 f"forced-full pass at epsilon {EPSILON}")
+        out[str(n)] = {"hier": hier, "flat": flat, "decisions_equal": True}
     return out
 
 

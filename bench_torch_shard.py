@@ -99,6 +99,13 @@ GREEDY_N = 4096
 # the engine's sizing backend: the CUDA kernels on the card, their plain
 # versions on the CPU
 BACKEND = "kernel"
+# the keys of this script's records that time a run on the host's clock
+# or name the cards its mesh listed: all that may differ between two runs
+# that decide the same
+WALL_KEYS = frozenset({"mesh_cards", "analyze_optimize_ms_p50",
+                       "analyze_optimize_ms", "sequential_ms_p50",
+                       "vector_ms_p50", "speedup", "reconcile_cycle_512_ms",
+                       "vs_512_reconcile_cycle"})
 
 
 def fleet_spec(n: int, *, distinct_loads: bool = False,

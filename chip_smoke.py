@@ -19,7 +19,7 @@ width and holds each against its reference (phase 6), then drives the
 hierarchical engine (super-shards, staggered forced-full) at fleet
 scale, unlimited and in limited mode, holds every cycle against a
 from-scratch flat engine, restarts it from its checkpoint, and times it
-against the flat engine at 4096 variants (phase 7), then drives the
+against the flat engine up to 16384 variants (phase 7), then drives the
 controller's reconcile cycle (`Reconciler.reconcile()`: collect from a
 FakePromAPI, analyze through the engines and the kernels, optimize,
 publish to an InMemoryKube) at 512 VAs x 8 slices, in limited mode, and
@@ -113,16 +113,21 @@ CAPACITY_CHANGE_AT, GROW_AT, N_GROW = 15, 22, 16
 # shards of the default 1024), HIER_CYCLES churn cycles, forced full
 # every HIER_FULL_EVERY cycles; the limited churn turns scarce at cycle
 # HIER_SCARCE_FROM; 7b checkpoints every HIER_CKPT_EVERY cycles and
-# restarts after cycle HIER_RESTART_AFTER. The limited fleet pins
-# variant i to a slice of GENERATIONS[i % 3]. Larger fleets are phase
-# 14c's (bench_torch_hier: 8192-32768 variants, hierarchical against
-# flat, a restart in fresh processes).
+# restarts after cycle HIER_RESTART_AFTER. 7c: FLEET_VARIANTS variants
+# (16 shards) for FLEET_CYCLES cycles at the seam's defaults (forced
+# full every 32 cycles, a checkpoint every 8), a persistent flat engine
+# for FLAT_CYCLES cycles and FLAT_REPS from-scratch flat cycles. The
+# limited fleet pins variant i to a slice of GENERATIONS[i % 3].
 HIER_VARIANTS = 4096
 HIER_CYCLES = 12
 HIER_FULL_EVERY = 8
 HIER_SCARCE_FROM = 7
 HIER_CKPT_EVERY = 4
 HIER_RESTART_AFTER = 8
+FLEET_VARIANTS = 16384
+FLEET_CYCLES = 11
+FLAT_CYCLES = 2
+FLAT_REPS = 1
 GENERATIONS = ("v5e", "v5p", "v6e")
 
 # phase 8: the reconcile cycle (Reconciler.reconcile) on the card, on a
@@ -143,15 +148,15 @@ GENERATIONS = ("v5e", "v5p", "v6e")
 # design).
 RECON_VARIANTS = 512
 RECON_NAMESPACES = 8
-RECON_STEADY = 10
+RECON_STEADY = 6
 RECON_CHURN = 0.02
 RECON_FAIL_AT = 5
 RECON_F64_CYCLES = 3
 RECON_SCARCE = 0.6
-LIMITED_STEADY = 5
+LIMITED_STEADY = 3
 FLEET_RECON_VARIANTS = 4096
 FLEET_RECON_MODELS = 512
-FLEET_RECON_CYCLES = 3
+FLEET_RECON_CYCLES = 2
 RECON_OPERATOR = (("WVA_SOLVE_EPSILON", "0"),)
 STAGES = ("config", "prepare", "analyze", "optimize", "publish")
 
@@ -170,7 +175,7 @@ STAGES = ("config", "prepare", "analyze", "optimize", "publish")
 # un-restarted core. 9c: `python -m
 # workload_variant_autoscaler_tpu_torch.controller` in dev mode over the
 # fleet's manifests and a Prometheus shim, PROCESS_ROUNDS pushed rounds.
-STREAM_ROUNDS = 20
+STREAM_ROUNDS = 10
 STREAM_CHANGED = 10
 STREAM_RESTART_ROUNDS = 3
 PROCESS_ROUNDS = 5
@@ -249,15 +254,17 @@ BENCH13_SMOKE = False
 # port's root scripts. 14a, simulated time in float32 on the card, in
 # BENCH14_WORKERS spawned workers: bench_torch_goodput and
 # bench_torch_goodput_live over the six library scenarios at full
-# duration (a job each), bench_torch_adversary's search at its defaults
-# and its same-seed rerun (a worker each), then its hardened run and
-# promotion; 14b, float64 on the card against the CPU: the adversary and
-# goodput-live smokes, bench_torch_shard's churn, bench_torch_hier's
+# duration (a job each; every score sheet sane and at its scenario's
+# goodput floor, hold_scores), bench_torch_adversary's search at its
+# defaults and its same-seed rerun (a worker each), then its hardened run
+# and promotion; 14b, float64 on the card against the CPU: the adversary
+# and goodput-live smokes, bench_torch_shard's churn, bench_torch_hier's
 # smoke; 14c, wall clock, alone: bench_torch_shard at full sizes on an
 # 8-entry lane mesh, bench_torch_hier at full sizes with no mesh (the
-# restart leg at 32768 in fresh processes), and bench_torch_hier at
-# 8192 on an 8-entry mesh. A CPU rehearsal sets BENCH14_DEVICE "cpu" and
-# BENCH14_SMOKE (smoke sizes, abbreviated scenarios).
+# restart leg at 32768 in fresh processes), and bench_torch_hier at 8192
+# on an 8-entry mesh, each with launch counts of its own. A CPU
+# rehearsal sets BENCH14_DEVICE "cpu" and BENCH14_SMOKE (smoke sizes,
+# abbreviated scenarios).
 BENCH14_WORKERS = 6
 BENCH14_DEVICE = "cuda"
 BENCH14_SMOKE = False
@@ -1192,11 +1199,127 @@ def hier_churn(label, fleet, seed, caps=None, restart_path=None,
     return runs
 
 
-def hier_summary(card, unlimited_runs, limited_runs) -> None:
-    """Phase 7's summary: launches per hierarchical cycle and the steady
-    cycles at HIER_VARIANTS variants, hierarchical against flat, with the
-    card's name and power limit beside them. A steady cycle is any cycle
-    after the first; `quiet` ones have no shard forced full."""
+def timed_method(obj, name: str) -> list:
+    """Wrap obj.<name> (on the instance) to append each call's ms to the
+    returned list."""
+    spent, orig = [], getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, timed)
+    return spent
+
+
+def timed_saves(engine) -> list:
+    """Time every checkpoint save of `engine` (finish_cycle calls
+    maybe_checkpoint each cycle; it saves every checkpoint_every-th):
+    a list of (whole save ms, of which building the payload ms)."""
+    saves = []
+    built = timed_method(engine, "_checkpoint_payload")
+    orig = engine.maybe_checkpoint
+
+    def timed():
+        before = engine.ckpt_events["save"]
+        t0 = time.perf_counter()
+        orig()
+        if engine.ckpt_events["save"] > before:
+            saves.append(((time.perf_counter() - t0) * 1e3, built[-1]))
+
+    engine.maybe_checkpoint = timed
+    return saves
+
+
+def fleet_scale(workdir):
+    """Phase 7c: FLEET_VARIANTS variants x 8 slices, unlimited, through
+    the engine the seam gives by default (`_solve_engine`, with a
+    checkpoint path): FLEET_CYCLES churn cycles (the first all forced,
+    then steady, a shard forced full on the cycles its stagger phase
+    comes due), a warm restart from the checkpoint of the engine's
+    first save against a cold start on that cycle's fleet, a persistent
+    flat engine over the first FLAT_CYCLES cycles and FLAT_REPS
+    from-scratch flat cycles on the last fleet (each must decide as the
+    hierarchical engine did). Returns the hierarchical runs, the restart
+    records (how -> (ms to build the engine, ms to its first decision,
+    timed_cycle's result, checkpoint events, ms of lane digests in the
+    cycle)), the flat runs (cycle,
+    timed_cycle's result), the saves and the checkpoint's size."""
+    from workload_variant_autoscaler_tpu_torch import IncrementalSolveEngine
+    from workload_variant_autoscaler_tpu_torch.controller import (
+        SolveEngineSelector)
+
+    fleet = build_fleet(FLEET_VARIANTS, SEED + 5)
+    path = os.path.join(workdir, "fleet.ckpt")
+    knobs = {"WVA_ARENA_CHECKPOINT": path}
+    engine = SolveEngineSelector()._solve_engine(knobs)
+    saves = timed_saves(engine)
+    runs, kept = [], {}
+    with cycle_clock() as spent:
+        for c, spec in hier_specs(fleet, FLEET_CYCLES, SEED + 6):
+            runs.append((c, timed_cycle(spec, engine, spent)))
+            if c in (engine.checkpoint_every, FLEET_CYCLES):
+                kept[c] = spec
+            r = runs[-1][1]
+            log(f"  fleet cycle {c:2d}: {r[1].shards} shards, "
+                f"{r[1].shards_solved} solved, "
+                f"{'full' if r[1].full else 'steady'} "
+                f"({r[1].modes.get('full', 0)} variants forced), lanes "
+                f"solved {r[1].lanes_solved} skipped {r[1].lanes_skipped}, "
+                f"launches {r[4]}; ms: {brief(r[3])}")
+        events = dict(engine.ckpt_events)
+        size = os.path.getsize(path)
+        del engine
+        gc.collect()
+        restart = {}
+        at = min(kept)
+        for how, cm in (("warm", knobs), ("cold", {})):
+            t0 = time.perf_counter()
+            eng = SolveEngineSelector()._solve_engine(cm)
+            built = (time.perf_counter() - t0) * 1e3
+            digests = timed_method(eng, "_lane_digest")
+            out = timed_cycle(kept[at], eng, spent)
+            restart[how] = (built, (time.perf_counter() - t0) * 1e3, out,
+                            dict(eng.ckpt_events), sum(digests))
+            del eng, out
+            gc.collect()
+        eng = IncrementalSolveEngine()
+        flat = [(c, timed_cycle(spec, eng, spent))
+                for c, spec in hier_specs(fleet, FLAT_CYCLES, SEED + 6)]
+        del eng
+        flat += [(FLEET_CYCLES, timed_cycle(
+            kept[FLEET_CYCLES], IncrementalSolveEngine(full_every=1), spent))
+            for _ in range(FLAT_REPS)]
+    want = {c: r[0] for c, r in runs}
+    warm, cold = restart["warm"][2], restart["cold"][2]
+    log(f"  restart on cycle {at}'s fleet: warm (checkpoint events "
+        f"{restart['warm'][3]}) restored={warm[1].restored} full="
+        f"{warm[1].full} lanes solved {warm[1].lanes_solved}; cold "
+        f"full={cold[1].full} lanes solved {cold[1].lanes_solved}")
+    for c, r in flat:
+        log(f"  fleet cycle {c:2d}, flat: {'full' if r[1].full else 'steady'}"
+            f", lanes solved {r[1].lanes_solved}; ms: {brief(r[3])}; "
+            f"equal={r[0] == want[c]}")
+    if not (warm[1].restored and not warm[1].full
+            and warm[1].lanes_solved == 0 and cold[1].full
+            and warm[0] == want[at] and cold[0] == want[at]
+            and all(r[0] == want[c] for c, r in flat)
+            and events["save"] >= 1 and events["save_error"] == 0
+            and restart["warm"][3]["restore"] == 1):
+        raise AssertionError(f"fleet scale: restart or flat check failed "
+                             f"(events {events}, {restart['warm'][3]})")
+    return runs, restart, flat, saves, size
+
+
+def hier_summary(card, unlimited_runs, limited_runs, fleet) -> None:
+    """Phase 7's summary: launches per hierarchical cycle, the steady
+    cycles at HIER_VARIANTS and FLEET_VARIANTS variants, hierarchical
+    against flat (the crossover on this card), and phase 7c's times, with
+    the card's name and power limit beside them. A steady cycle is any
+    cycle after the first; `quiet` ones have no shard forced full."""
+    runs, restart, flat, saves, size = fleet
 
     def parts(results):
         return brief({k: statistics.median(r[3][k] for r in results)
@@ -1211,38 +1334,63 @@ def hier_summary(card, unlimited_runs, limited_runs) -> None:
                if r[2] != "flat"]
         log(f"  launches (B1, B2) per hierarchical cycle, {label}, "
             f"{HIER_VARIANTS} variants: {per}")
+    per = [(r[4]["mean"], r[4]["tail"]) for _c, r in runs]
+    log(f"  launches (B1, B2) per hierarchical cycle, {FLEET_VARIANTS} "
+        f"variants: {per}")
 
-    hier = [r[3] for r in unlimited_runs if r[1] > 1 and r[2] == "hier"]
-    flat_steady = [r[3] for r in unlimited_runs
-                   if r[1] > 1 and r[2] == "flat"]
-    quiet = [r for r in hier if not forced(r)]
-    shard = [r for r in hier if forced(r)]
-    log(f"  {card}: steady cycle at {HIER_VARIANTS} variants, unlimited, "
-        f"median ms:")
-    log(f"    hierarchical, no shard forced ({len(quiet)} cycles, lanes "
-        f"solved {statistics.median(r[1].lanes_solved for r in quiet)})"
-        f": {parts(quiet)}")
-    if shard:
-        log(f"    hierarchical, a shard forced full ({len(shard)} cycles,"
-            f" {statistics.median(forced(r) for r in shard)} variants "
-            f"forced): {parts(shard)}; worst wall "
-            f"{max(r[3]['wall'] for r in shard):.3f}")
-    log(f"    flat ({len(flat_steady)} cycles, lanes solved "
-        f"{statistics.median(r[1].lanes_solved for r in flat_steady)}): "
-        f"{parts(flat_steady)}")
-    if not quiet:
-        raise AssertionError(f"{HIER_VARIANTS} variants: steady cycles "
-                             f"without a shard forced full are needed")
+    for n, hier, flat_steady in (
+            (HIER_VARIANTS,
+             [r[3] for r in unlimited_runs if r[1] > 1 and r[2] == "hier"],
+             [r[3] for r in unlimited_runs if r[1] > 1 and r[2] == "flat"]),
+            (FLEET_VARIANTS, [r for c, r in runs if c > 1],
+             [r for c, r in flat if c > 1 and not r[1].full])):
+        quiet = [r for r in hier if not forced(r)]
+        shard = [r for r in hier if forced(r)]
+        log(f"  {card}: steady cycle at {n} variants, unlimited, median ms:")
+        log(f"    hierarchical, no shard forced ({len(quiet)} cycles, lanes "
+            f"solved {statistics.median(r[1].lanes_solved for r in quiet)})"
+            f": {parts(quiet)}")
+        if shard:
+            log(f"    hierarchical, a shard forced full ({len(shard)} cycles,"
+                f" {statistics.median(forced(r) for r in shard)} variants "
+                f"forced): {parts(shard)}; worst wall "
+                f"{max(r[3]['wall'] for r in shard):.3f}")
+        log(f"    flat ({len(flat_steady)} cycles, lanes solved "
+            f"{statistics.median(r[1].lanes_solved for r in flat_steady)}): "
+            f"{parts(flat_steady)}")
+        if not quiet or (n == FLEET_VARIANTS and not shard):
+            raise AssertionError(f"{n} variants: steady cycles with and "
+                                 f"without a shard forced full are needed")
     lim = [r[3] for r in limited_runs if r[1] > 1 and r[2] != "flat"
            and not r[0].endswith("'")]
     log(f"  {card}: steady cycle at {HIER_VARIANTS} variants, limited "
         f"({LIMITED_POLICY}), hierarchical, median ms ({len(lim)} cycles): "
         f"{parts(lim)}")
 
+    full = [r for c, r in flat if r[1].full]
+    log(f"  {card}: {FLEET_VARIANTS} variants ({FLEET_VARIANTS * 8} lanes, "
+        f"{runs[0][1][1].shards} shards), unlimited, ms:")
+    log(f"    hierarchical first cycle (all shards forced): "
+        f"{brief(runs[0][1][3])}")
+    log(f"    flat forced-full cycle (a new engine's first cycle, median of "
+        f"{len(full)}): {parts(full)}")
+    for how in ("warm", "cold"):
+        built, total, out, _events, digests = restart[how]
+        log(f"    restart to first decision, {how}: {total:.3f} (engine "
+            f"built through the seam {built:.3f}, then one cycle: lanes "
+            f"solved {out[1].lanes_solved}, lane digests {digests:.3f}, "
+            f"{brief(out[3])})")
+    log(f"    checkpoint saves (whole save, of which the payload): "
+        f"{[(round(a, 3), round(b, 3)) for a, b in saves]} ms; file "
+        f"{size} bytes")
+    gcs = [r[3]["gc"] for _c, r in runs]
+    log(f"    gc per hierarchical cycle: median {statistics.median(gcs):.3f}"
+        f", max {max(gcs):.3f}")
+
 
 def hier_phase():
-    """Phase 7: 7a's two churns (7b's restart inside the limited one);
-    returns hier_summary's arguments after the card line."""
+    """Phase 7: 7a's two churns (7b's restart inside the limited one),
+    then 7c; returns hier_summary's arguments after the card line."""
     from workload_variant_autoscaler_tpu_torch import HierarchicalSolveEngine
     from workload_variant_autoscaler_tpu_torch.controller import (
         SolveEngineSelector)
@@ -1276,7 +1424,12 @@ def hier_phase():
     with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
         limited = hier_churn("7a(ii)", limited_fleet, SEED + 4, caps,
                              restart_path=os.path.join(d, "arena.ckpt"))
-    return unlimited, limited
+        del limited_fleet
+        gc.collect()
+        log(f"  7c: {FLEET_VARIANTS} variants x 8 slices, unlimited, the "
+            f"seam's default engine with a checkpoint")
+        fleet = fleet_scale(d)
+    return unlimited, limited, fleet
 
 
 def reconcile_cluster():
@@ -3407,14 +3560,21 @@ def bench14_job(name: str, device: str, dtype_name: str, arg, smoke: bool):
     elif name == "hier-smoke":
         result = ph.run(True, **on)
     elif name == "walls":
-        # the wall-clock jobs, one after another, nothing beside them
-        result = {"shard": ps.run(smoke, BENCH14_MESH, **on),
-                  "hier": ph.run(smoke, None, **on),
-                  "hier_mesh": ph.measure(
-                      ph.SMOKE_SIZES[:1] if smoke else ph.SIZES[:1],
-                      ps.lane_mesh(BENCH14_MESH, device),
-                      ph.SMOKE_SHARD_TARGET if smoke else ph.SHARD_TARGET,
-                      **on)}
+        # the wall-clock jobs, one after another, nothing beside them; the
+        # launch counts are set to 0 before each and read after it
+        runs = {"shard": lambda: ps.run(smoke, BENCH14_MESH, **on),
+                "hier": lambda: ph.run(smoke, None, **on),
+                "hier_mesh": lambda: ph.measure(
+                    ph.SMOKE_SIZES[:1] if smoke else ph.SIZES[:1],
+                    ps.lane_mesh(BENCH14_MESH, device),
+                    ph.SMOKE_SHARD_TARGET if smoke else ph.SHARD_TARGET,
+                    **on)}
+        result, each = {}, {}
+        for part, go in runs.items():
+            bk.reset_launches()
+            result[part] = go()
+            each[part] = dict(bk.launches)
+        result["launches"] = each
     else:
         raise ValueError(name)
     wall = time.perf_counter() - t0
@@ -3441,19 +3601,46 @@ def hold14(label, out) -> dict:
             "B1_per_cycle": b1 / cycles, "B2_per_cycle": b2 / cycles}
 
 
-def without_walls(out):
+def without_walls(out, drop=None):
     """`out` without its host-clock values (walls, ms, shares) and the
-    keys that name where it ran: what float64 on the card and on the CPU
-    must hold equal."""
-    drop = {"wall_s", "device", "backend", "kernel_launches", "mesh_cards",
-            "first_full_pass_ms", "forced_wall_ms_max", "window_walls_ms",
-            "forced_full_ms_min", "cold_first_decision_ms",
-            "warm_restart_to_first_decision_ms", "first_cycle_ms"}
+    keys that name where it ran, as the scripts define them: what float64
+    on the card and on the CPU must hold equal."""
+    if drop is None:
+        import bench_torch_adversary as pa
+        import bench_torch_goodput_live as pv
+        import bench_torch_hier as ph
+        import bench_torch_loop as bl
+        import bench_torch_shard as ps
+
+        drop = (bl.WHERE_KEYS | ps.WALL_KEYS | ph.WALL_KEYS | pa.WALL_KEYS
+                | pv.WALL_KEYS)
     if isinstance(out, dict):
-        return {k: without_walls(v) for k, v in out.items() if k not in drop}
+        return {k: without_walls(v, drop) for k, v in out.items()
+                if k not in drop}
     if isinstance(out, list):
-        return [without_walls(v) for v in out]
+        return [without_walls(v, drop) for v in out]
     return out
+
+
+def hold_scores(scores: dict, launched: dict) -> None:
+    """14a's hold on bench_torch_goodput: raises unless every scenario's
+    score sheet is sane (goodput and SLO attainment in [0, 1], a cost
+    and cycles), reaches the scenario's goodput floor and, on the card,
+    launched B1."""
+    from workload_variant_autoscaler_tpu_torch.emulator.scenarios import (
+        SCENARIOS)
+
+    for name, d in scores.items():
+        if not (0.0 <= d["goodput_fraction"] <= 1.0
+                and 0.0 <= d["slo_attainment"] <= 1.0
+                and d["cost_dollar_seconds"] > 0.0 and d["cycles"] > 0):
+            raise AssertionError(f"14a {name}: bad score sheet {d}")
+        if d["goodput_fraction"] < SCENARIOS[name].goodput_floor:
+            raise AssertionError(
+                f"14a {name}: goodput {d['goodput_fraction']} below the "
+                f"scenario's floor {SCENARIOS[name].goodput_floor}")
+        if BENCH14_DEVICE == "cuda" and launched[name]["mean"] < 1:
+            raise AssertionError(f"14a {name}: B1 was not launched")
 
 
 def run14(pool, jobs, smoke: bool) -> dict:
@@ -3493,6 +3680,8 @@ def phase_14(card) -> dict:
         t_sim = time.perf_counter() - t0
         scores = {n: by[("goodput", dev, "float32", n)][0]["score"]
                   for n in names}
+        hold_scores(scores, {n: by[("goodput", dev, "float32", n)][1]
+                             for n in names})
         hand = None if smoke else pg.compose(scores)
         first = by[("search", dev, "float32", 0)][0]
         second = by[("search", dev, "float32", 1)][0]
@@ -3591,12 +3780,15 @@ def phase_14(card) -> dict:
              wall_s_cpu=cpu_wall)
 
     # 14c: wall clock, alone
-    walls, walls_launched, walls_wall = by[("walls", dev, "float32",
-                                            None)]
+    walls, _launched, walls_wall = by[("walls", dev, "float32", None)]
+
+    def sub_launched(part):
+        k = walls["launches"][part]
+        return {"B1": k["mean"], "B2": k["tail"]}
+
     alone = "alone, after the other jobs ended"
     shard = walls["shard"]
-    line("bench_torch_shard", "14c", shard,
-         {"B1": walls_launched["mean"], "B2": walls_launched["tail"]},
+    line("bench_torch_shard", "14c", shard, sub_launched("shard"),
          beside=alone, **{k: shard.get(k) for k in (
              "mesh_entries", "mesh_cards", "value",
              "reconcile_cycle_512_ms", "vs_512_reconcile_cycle", "budgets")},
@@ -3608,8 +3800,7 @@ def phase_14(card) -> dict:
          greedy={k: v for k, v in shard.get("greedy", {}).items()
                  if k != "decisions"})
     hier = walls["hier"]
-    line("bench_torch_hier", "14c", hier,
-         {"B1": walls_launched["mean"], "B2": walls_launched["tail"]},
+    line("bench_torch_hier", "14c", hier, sub_launched("hier"),
          beside=alone, **{k: hier.get(k) for k in (
              "mesh_entries", "value", "forced_wall_32k_vs_8k", "budgets")},
          walls={n: {"shards": w["hier"]["shards"],
@@ -3634,7 +3825,7 @@ def phase_14(card) -> dict:
                  for k, v in hier["restart"]["probes"].items()})
     mesh = walls["hier_mesh"]
     line("bench_torch_hier", f"14c {BENCH14_MESH}-entry mesh", mesh,
-         {"B1": walls_launched["mean"], "B2": walls_launched["tail"]},
+         sub_launched("hier_mesh"),
          beside=alone, mesh_entries=BENCH14_MESH,
          walls={n: {"shards": w["hier"]["shards"],
                     "forced_wall_ms_max": w["hier"]["forced_wall_ms_max"],

@@ -199,6 +199,53 @@ def test_hier_stagger_equal(jax, n):
     assert sum(mine["forced_lanes"]) == n
 
 
+@pytest.mark.parametrize("n", ph.SMOKE_SIZES)
+def test_hier_measure_holds_hier_equal_to_flat(jax, n):
+    """measure holds every hierarchical window cycle against a flat
+    forced-full pass at the same epsilon, equal to the JAX window's
+    decisions."""
+    walls = ph.measure((n,), LANES8, ph.SMOKE_SHARD_TARGET, **CPU)[str(n)]
+    assert walls["decisions_equal"]
+    assert [ph.flat_decisions(n, None, **CPU)] == \
+        jax["hier"][str(n)]["decisions"]
+
+
+def test_hier_measure_raises_when_flat_decides_otherwise(monkeypatch):
+    monkeypatch.setattr(ph, "flat_decisions", lambda *a, **k: "another")
+    with pytest.raises(AssertionError, match="otherwise than the flat"):
+        ph.measure((ph.SMOKE_SIZES[0],), None, ph.SMOKE_SHARD_TARGET, **CPU)
+
+
+def _strip(out, drop):
+    if isinstance(out, dict):
+        return {k: _strip(v, drop) for k, v in out.items() if k not in drop}
+    if isinstance(out, list):
+        return [_strip(v, drop) for v in out]
+    return out
+
+
+@pytest.mark.parametrize("script", ["shard", "hier"])
+def test_wall_keys_cover_what_two_runs_may_differ_in(script):
+    """Two smoke runs of a script differ only in its WALL_KEYS and the
+    reporting keys (bench_torch_loop.WHERE_KEYS): what a comparison of
+    decisions across devices drops."""
+    import bench_torch_loop as pl
+
+    def record():
+        if script == "shard":
+            return ps.run(True, 2, **CPU)
+        # the hier smoke record's parts, at a 64-variant fleet
+        return {"walls": ph.measure((64,), None, 16, **CPU),
+                "restart": ph.restart_leg(64, 16, True, 1, **CPU)}
+
+    mod = ps if script == "shard" else ph
+    drop = pl.WHERE_KEYS | mod.WALL_KEYS
+    first, second = record(), record()
+    assert first != second
+    assert _strip(first, drop) == _strip(second, drop)
+    assert ps.WALL_KEYS <= ph.WALL_KEYS
+
+
 def test_hier_restart_equal(jax):
     mine = ph.restart_leg(ph.SMOKE_SIZES[1], ph.SMOKE_SHARD_TARGET, True, 8,
                           **CPU)

@@ -24,7 +24,7 @@ import json
 import numpy as np
 import pytest
 import torch
-from twin_signature import differences, signature
+from twin_signature import differences, signature, trace_ranks
 
 from workload_variant_autoscaler_tpu.emulator import adversary as jad
 from workload_variant_autoscaler_tpu.emulator import twin as jtw
@@ -166,6 +166,7 @@ def test_archive_entry_scores_as_jax(name):
     ref = jtw.run_scenario(jav.ADVERSARIAL_SCENARIOS[name])
     mine = ptw.run_scenario(pav.ADVERSARIAL_SCENARIOS[name], device="cpu",
                             dtype=F64)
-    assert differences(signature(ref), signature(mine), 1e-9) == []
+    assert differences(trace_ranks(signature(ref)),
+                       trace_ranks(signature(mine)), 1e-9) == []
     assert mine.goodput_fraction == ref.goodput_fraction
     assert mine.fault_trips == ref.fault_trips > 0

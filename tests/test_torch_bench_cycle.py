@@ -9,7 +9,8 @@ bench_fuse.py pin it; the CPU's default would be the native backend,
 which reads nothing back and so counts no sizing). Compared exactly:
 query, list and get counts and every VA's published accelerator and
 replicas in both collection modes; the attribution ledger's bucket
-keyset and span-tree shape and the partition invariant; readbacks per
+keyset and span-tree shape (less the spans only the port opens,
+bench_torch_profile.PORT_ONLY) and the partition invariant; readbacks per
 cycle; fused, staged and JAX decisions; the 4096-server fleet's unique
 lanes and decisions at a reduced n. Host-clock values (walls, the
 fractions and ms of the ledger's buckets) are not compared; nothing here
@@ -142,8 +143,10 @@ def test_profile_ledger_shape_equal(monkeypatch):
     p = pp.profiled_cycle(N, **CPU)
     pp.assert_invariants(p)
     assert "WVA_PROFILE_SAMPLE_HZ" not in os.environ
-    assert sorted(p["buckets"]) == sorted(j["buckets"])
-    assert pp.tree_shape(p["tree"]) == jp.tree_shape(j["tree"])
+    assert pp.bucket_keys(p, pp.PORT_ONLY) == sorted(j["buckets"])
+    assert pp.tree_shape(p["tree"], pp.PORT_ONLY) \
+        == jp.tree_shape(j["tree"])
+    assert {"system.pack", "system.decide"} <= set(p["buckets"])
     assert p["attributed_fraction"] >= 0.9
     assert p["device"]["retraces"] == {} == j["jax"]["retraces"]
     assert p["device"]["transfers"]["d2h"] \
@@ -195,7 +198,7 @@ def test_fuse_steady_and_profiled_decisions_equal(monkeypatch):
         == j_on["jax"]["transfers"]["d2h"] == 1
     assert p_off["device"]["transfers"]["d2h"] > 1     # a readback a step
     assert not p_on["device"]["retraces"]
-    assert sorted(p_on["buckets"]) == sorted(j_on["buckets"])
+    assert pp.bucket_keys(p_on, pp.PORT_ONLY) == sorted(j_on["buckets"])
     fails, budgets = pf.check({"steady_state": ps,
                                "fused": {"transfers": p_on["device"][
                                    "transfers"], "retraces": {}}})

@@ -310,3 +310,139 @@ def test_run_forever_with_the_stream_on_runs_micro_cycles(monkeypatch):
         if rc.model_of(i, c) == "m1"))
     assert core.failures == {"cycle": 0, "consumer": 0,
                              "checkpoint_save": 0}
+
+
+# -- the flight recorder on the host clock -------------------------------------
+
+
+def port_cycle(c: Cluster, monkeypatch=None, during=None):
+    """One port cycle on the injected clock, which stands still while the
+    cycle runs; `during()` runs inside the analyze stage, from the first
+    sizing group's pack. Returns the build and the cycle's trace."""
+    from workload_variant_autoscaler_tpu_torch.models import system as msys
+
+    if during is not None:
+        orig = msys.System._group_rows
+
+        def rows(self, *a, **kw):
+            during()
+            return orig(self, *a, **kw)
+
+        monkeypatch.setattr(msys.System, "_group_rows", rows)
+    p = rc.build(PORT, c, rc.Clock(), rc.loads(c), device="cpu",
+                 dtype=torch.float64)
+    p.rec.reconcile()
+    return p, p.rec.tracer.traces(1)[0]
+
+
+def parent_name(trace, sp) -> str:
+    return next(x.name for x in trace.spans if x.span_id == sp.parent_id)
+
+
+def test_spans_on_an_injected_clock_last_host_time():
+    """`now` stands still through the cycle; the spans still time the
+    host's work, on the clock the stage marks read."""
+    p, trace = port_cycle(Cluster(variants=16, models=4))
+    assert trace.root.duration_ms > 0.0
+    stages = [sp for sp in trace.spans if sp.name.startswith("stage:")]
+    assert len(stages) == 5
+    for sp in stages:
+        mark = p.emitter.value("inferno_reconcile_stage_duration_msec",
+                               stage=sp.name.removeprefix("stage:"))
+        assert abs(sp.duration_ms - mark) <= 1.0, sp.name
+
+
+def test_sizing_groups_open_pack_and_decide_spans(monkeypatch):
+    """Each sizing group (here a mean and a p95 group) opens one
+    `system.pack` and one `system.decide` under stage:analyze, and the
+    ledger has a bucket for each."""
+    from workload_variant_autoscaler_tpu_torch.models import system as msys
+
+    groups = []
+    orig = msys.System._size_group_fused
+
+    def spy(self, pairs, *a, **kw):
+        groups.append(len(pairs))
+        return orig(self, pairs, *a, **kw)
+
+    monkeypatch.setattr(msys.System, "_size_group_fused", spy)
+    c = Cluster(variants=16, models=4, percentile=0.95)
+    p, trace = port_cycle(c)
+    assert len(groups) == 2
+    for name in ("system.pack", "system.decide"):
+        spans = trace.find_spans(name)
+        assert len(spans) == len(groups), name
+        assert {parent_name(trace, sp) for sp in spans} == {"stage:analyze"}
+        assert all(sp.duration_ms > 0.0 for sp in spans)
+    assert sorted(sp.attributes["lanes"]
+                  for sp in trace.find_spans("system.pack")) == sorted(groups)
+    buckets = p.rec.profiler.records(1)[0].buckets
+    assert buckets["system.pack"] > 0.0 and buckets["system.decide"] > 0.0
+
+
+def test_gc_in_a_cycle_is_a_gc_span(monkeypatch):
+    """A gen-2 collection inside a traced cycle: a finished `gc` span
+    under the span it interrupted, a `gc` bucket in the ledger, and
+    inferno_gc_pause_seconds_total{generation="2"} up by its length."""
+    import gc
+
+    p, trace = port_cycle(Cluster(variants=16, models=4), monkeypatch,
+                          during=gc.collect)
+    spans = trace.find_spans("gc")
+    assert spans and {parent_name(trace, sp) for sp in spans} \
+        == {"system.pack"}
+    paused = sum(sp.duration_ms for sp in spans)
+    assert paused > 0.0
+    assert p.rec.profiler.records(1)[0].buckets["gc"] \
+        == pytest.approx(paused, rel=1e-9)
+    assert p.emitter.value("inferno_gc_pause_seconds_total",
+                           generation="2") * 1e3 >= paused
+
+
+def test_gc_hook_installed_once_per_process():
+    import gc
+
+    from workload_variant_autoscaler_tpu_torch.obs import GC_AUDIT
+
+    b = rc.modules(PORT)
+    ctl = b["ctl"]
+    for _ in range(3):
+        ctl.Reconciler(kube=ctl.InMemoryKube(),
+                       prom=b["col"].FakePromAPI(), device="cpu")
+    assert GC_AUDIT.installed
+    assert sum(cb == GC_AUDIT.hook for cb in gc.callbacks) == 1
+
+
+def test_gc_hook_takes_no_lock():
+    """A collection set off while its thread holds the tracer's lock,
+    the emitter's and the GC counter's: the hook takes none of them, so
+    gc.collect() returns."""
+    import gc
+    import threading
+
+    b = rc.modules(PORT)
+    ctl = b["ctl"]
+    rec = ctl.Reconciler(kube=ctl.InMemoryKube(),
+                         prom=b["col"].FakePromAPI(), device="cpu")
+    counter = rec.emitter.gc_pause_seconds
+    child = counter.labels(generation="2")
+    locks = (rec.tracer._lock, rec.emitter._lock, counter._lock,
+             child._value._lock)
+    done = threading.Event()
+
+    def collect():
+        root = rec.tracer.begin("reconcile")
+        for lock in locks:
+            lock.acquire()
+        try:
+            gc.collect()
+            done.set()
+        finally:
+            for lock in reversed(locks):
+                lock.release()
+            root.finish()
+
+    t = threading.Thread(target=collect, daemon=True)
+    t.start()
+    t.join(timeout=60.0)
+    assert not t.is_alive() and done.is_set()

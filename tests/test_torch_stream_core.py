@@ -86,13 +86,20 @@ def write_body(load: dict, keys, ts_ms: float, fields=None) -> bytes:
     return ps.snappy_compress(ps.encode_write_request(series))
 
 
+# the port's own stream series, which the JAX package does not have
+PORT_ONLY_STREAM = ("inferno_stream_queue_wait_seconds",
+                    "inferno_stream_door_seconds")
+
+
 def stream_samples(emitter) -> dict:
     """The decision series, the degradation rung and every
-    `inferno_stream_*` sample (not the `_created` wall-clock stamps)."""
+    `inferno_stream_*` sample (not the `_created` wall-clock stamps, nor
+    the port's own PORT_ONLY_STREAM series)."""
     out = {}
     for metric in emitter.registry.collect():
         for s in metric.samples:
-            if s.name.endswith("_created"):
+            if s.name.endswith("_created") \
+                    or s.name.startswith(PORT_ONLY_STREAM):
                 continue
             if s.name.startswith("inferno_stream") \
                     or s.name in rc.DECISION_SERIES \
@@ -629,3 +636,89 @@ def assert_payloads_equal(a, b, where="payload"):
             assert_payloads_equal(x, y, f"{where}[{i}]")
     else:
         assert a == b, where
+
+
+def test_queue_wait_and_door_time_one_push():
+    """One push, served 0.5 s after the door offered it (on the core's
+    clock) by a micro-cycle that itself takes 0.25 s: one queue-wait
+    sample for the one lag sample, the wait (0.5) at most the lag
+    (0.75). The door times every request to its path, whatever its
+    status, and no other path."""
+    c = Cluster(variants=16, namespaces=2, models=8, profiles=2, seed=5)
+    clock = rc.Clock()
+    load = rc.loads(c)
+    p = rc.build(PORT, c, clock, copy.deepcopy(load), device="cpu",
+                 dtype=torch.float64)
+    core = ps.StreamCore(p.rec, clock=clock.monotonic)
+    p.rec.stream_core = core
+    door = ps.remote_write_middleware(core)(lambda _e, _s: [b"inner"])
+    assert len(core.process_once()) == 1           # the first full pass
+    orig = p.rec.reconcile
+
+    def slow(**kw):
+        clock.advance(0.25)
+        return orig(**kw)
+
+    p.rec.reconcile = slow
+    key = sorted(load)[0]
+    load[key]["rps"] *= 1.5
+    rc.set_loads(p, load)
+    status, _h, _b = post(door, write_body(load, [key],
+                                           clock.now() * 1000.0))
+    assert status.startswith("204")
+    clock.advance(0.5)
+    assert [len(r.processed) for r in core.process_once()] == [2]
+    value = p.emitter.value
+    assert value("inferno_stream_queue_wait_seconds_count") \
+        == value("inferno_stream_lag_seconds_count") == 1
+    wait = value("inferno_stream_queue_wait_seconds_sum")
+    lag = value("inferno_stream_lag_seconds_sum")
+    assert wait == pytest.approx(0.5) and lag == pytest.approx(0.75)
+    assert wait <= lag
+    assert post(door, b"", method="GET")[0].startswith("405")
+    assert post(door, b"not snappy")[0].startswith("400")
+    assert post(door, b"", path="/metrics")[2] == b"inner"
+    assert value("inferno_stream_door_seconds_count") == 3
+    assert value("inferno_stream_door_seconds_sum") > 0.0
+
+
+def test_queue_wait_only_for_published_groups():
+    """A scoped micro-cycle over two changed groups that publishes only
+    the first: the queue wait, like the lag, counts the one published
+    group, so each wait has its lag and lag = wait + service."""
+    c = Cluster(variants=16, namespaces=2, models=8, profiles=2, seed=5)
+    clock = rc.Clock()
+    load = rc.loads(c)
+    p = rc.build(PORT, c, clock, copy.deepcopy(load), device="cpu",
+                 dtype=torch.float64)
+    core = ps.StreamCore(p.rec, clock=clock.monotonic)
+    p.rec.stream_core = core
+    door = ps.remote_write_middleware(core)(lambda _e, _s: [b"inner"])
+    assert len(core.process_once()) == 1           # the first full pass
+    first, second = sorted(load)[:2]
+    dropped = set(va_keys(c, [second]))
+    orig = p.rec.reconcile
+
+    def publishes_first(**kw):
+        clock.advance(0.25)
+        result = orig(**kw)
+        result.processed = [k for k in result.processed
+                            if k not in dropped]
+        return result
+
+    p.rec.reconcile = publishes_first
+    for key in (first, second):
+        load[key]["rps"] *= 1.5
+    rc.set_loads(p, load)
+    status, _h, _b = post(door, write_body(load, [first, second],
+                                           clock.now() * 1000.0))
+    assert status.startswith("204")
+    clock.advance(0.5)
+    results = core.process_once()
+    assert [r.processed for r in results] == [va_keys(c, [first])]
+    value = p.emitter.value
+    assert value("inferno_stream_queue_wait_seconds_count") \
+        == value("inferno_stream_lag_seconds_count") == 1
+    wait = value("inferno_stream_queue_wait_seconds_sum")
+    lag = value("inferno_stream_lag_seconds_sum")
+    assert wait == pytest.approx(0.5) and lag == pytest.approx(0.75)

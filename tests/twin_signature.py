@@ -22,6 +22,20 @@ def signature(result) -> dict:
             "ticks": result.meter.ledger()}
 
 
+def trace_ranks(sig: dict) -> dict:
+    """`sig` with each decision's trace id replaced by the order in which
+    its trace first appears: the decisions of one cycle still share one
+    value and those of two cycles differ. For a comparison across the
+    packages: ids come from the tracer's one counter of traces and
+    spans, and the port opens spans the JAX package does not (each
+    sizing group's `system.pack` and `system.decide`), so its ids run
+    ahead. A rerun of one package compares the ids themselves."""
+    first: dict = {}
+    decisions = [dict(d, trace_id=first.setdefault(d["trace_id"], len(first)))
+                 for d in sig["decisions"]]
+    return dict(sig, decisions=decisions)
+
+
 def differences(a, b, rel: float) -> list:
     """Where two signatures differ: floats beyond `rel` (relative),
     anything else unequal; at most LIMIT paths."""

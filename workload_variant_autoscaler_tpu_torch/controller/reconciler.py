@@ -65,6 +65,8 @@ from ..obs import (
     CLAMP_STABILIZATION,
     CLAMP_STALE_VETO,
     CLAMP_TTFT_BACKPRESSURE,
+    GC_AUDIT,
+    GC_SPAN,
     HELD,
     LIMITED,
     DecisionBuilder,
@@ -273,6 +275,7 @@ class Reconciler:
         *,
         device=None,
         dtype=None,
+        perf=None,
     ):
         # the device and dtype every cycle's System is built on (and,
         # through it, the engines' arenas): `cuda` unless told otherwise,
@@ -290,10 +293,11 @@ class Reconciler:
         # flight recorder (obs/): one trace per cycle, one immutable
         # DecisionRecord per variant per cycle (served over /debug/ by the
         # process entry point, a later slice of the port). Ring
-        # capacities from WVA_TRACE_BUFFER / WVA_TRACE_DECISIONS. The
-        # tracer derives span DURATIONS from the injected clock too, so
-        # sim-time runs trace sim durations, deterministically.
-        self.tracer = tracer or Tracer(now=now)
+        # capacities from WVA_TRACE_BUFFER / WVA_TRACE_DECISIONS. Span
+        # DURATIONS are host time (time.perf_counter) whatever `now` is,
+        # unless `perf` names another clock: the twin passes its sim
+        # clock, so sim-time runs trace sim durations, deterministically.
+        self.tracer = tracer or Tracer(now=now, perf=perf)
         self.decisions = decisions or DecisionLog(now=now)
         # wall-clock attribution ledger (obs/profile.py): each cycle's
         # trace folds into a ProfileRecord partitioning the cycle wall
@@ -302,6 +306,10 @@ class Reconciler:
         # along onto the inferno_jit_* series. Ring capacity from
         # WVA_PROFILE_BUFFER.
         self.profiler = profiler or Profiler()
+        # the interpreter's collection pauses (obs/profile.py GC_AUDIT):
+        # one process-wide hook, drained per cycle by every reconciler
+        GC_AUDIT.install()
+        self._gc_seen = GC_AUDIT.totals()
         self._trace_log = os.environ.get(
             "WVA_TRACE_LOG", "").lower() in ("1", "true")
         # ALL engine state that outlives a stage call — the cycle
@@ -771,6 +779,7 @@ class Reconciler:
             # series. Observability only: a ledger bug must not fail
             # (or re-fail) the cycle.
             try:
+                self._drain_gc(root)
                 residual = sampler.stop() if sampler is not None else None
                 record = self.profiler.observe(
                     root.trace, cycle=self._cycle_index, ts=self.now(),
@@ -804,6 +813,21 @@ class Reconciler:
                                 extra=kv(error=str(e)))
             self.state.scope = None
             self.state.stream_loads = None
+
+    def _drain_gc(self, root) -> None:
+        """The collector's pauses since the last cycle onto
+        inferno_gc_pause_seconds_total, and this cycle's gen-2 pauses
+        into finished `gc` spans under the span each one interrupted.
+        The pauses are timed on time.perf_counter, so only a tracer on
+        that clock gets the spans (a sim-time trace stays sim-time)."""
+        totals = GC_AUDIT.totals()
+        self.emitter.emit_gc_pauses(
+            tuple(t - s for t, s in zip(totals, self._gc_seen)))
+        self._gc_seen = totals
+        if self.tracer.perf is time.perf_counter:
+            for t0, t1, sp in GC_AUDIT.gen2_pauses():
+                if sp is not None and sp.trace is root.trace:
+                    self.tracer.record(GC_SPAN, sp, t0, t1)
 
     def _reconcile_timed(self, mark) -> ReconcileResult:
         scope = self.state.scope

@@ -492,13 +492,19 @@ def _run_scenario(scenario: Scenario, plan: FaultPlan,
             slo_ttft_ms=st.spec.slo_ttft_ms)
 
     sim = Simulation(fleets, seed=scenario.seed)
+
+    def sim_clock() -> float:
+        """The controller's clock, and its spans' duration clock too:
+        the trace of a rerun is byte for byte the same."""
+        return sim.now_ms / 1000.0
+
     backends = [SimPromAPI(sink, v.model, v.namespace, fault_plan=plan)
                 for sink, v in zip(sinks, scenario.variants)]
     prom = MultiPromAPI(backends)
     emitter = MetricsEmitter()
     rec = Reconciler(kube=kube, prom=prom, emitter=emitter,
-                     now=lambda: sim.now_ms / 1000.0, sleep=lambda _s: None,
-                     device=device, dtype=dtype)
+                     now=sim_clock, sleep=lambda _s: None,
+                     device=device, dtype=dtype, perf=sim_clock)
     if online_meter is not None:
         rec.attach_goodput_meter(online_meter, self_tick=False)
 
@@ -673,7 +679,7 @@ def _run_scenario(scenario: Scenario, plan: FaultPlan,
             # and so a restarted core finds its checkpoint knob
             rec.state.last_operator_cm = _operator_cm(scenario,
                                                       operator_extra)
-            c = StreamCore(rec, clock=lambda: sim.now_ms / 1000.0)
+            c = StreamCore(rec, clock=sim_clock)
             rec.stream_core = c
             c.on_cycle_start(begin_cycle)
             return c
@@ -766,8 +772,8 @@ def _run_scenario(scenario: Scenario, plan: FaultPlan,
                           t_s=now_ms / 1000.0))
         emitter = MetricsEmitter()
         rec = Reconciler(kube=kube, prom=prom, emitter=emitter,
-                         now=lambda: sim.now_ms / 1000.0,
-                         sleep=lambda _s: None, device=device, dtype=dtype)
+                         now=sim_clock, sleep=lambda _s: None,
+                         device=device, dtype=dtype, perf=sim_clock)
         if online_meter is not None:
             rec.attach_goodput_meter(online_meter, self_tick=False)
         if scenario.streaming:

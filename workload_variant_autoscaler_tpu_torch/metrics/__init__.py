@@ -163,12 +163,15 @@ INFERNO_ARENA_CHECKPOINT_TOTAL = "inferno_arena_checkpoint_total"
 # storm (docs/robustness.md, node-pool fault kinds)
 INFERNO_POOL_CAPACITY_CHIPS = "inferno_pool_capacity_chips"
 # device audit (obs/profile.py DEVICE_AUDIT, drained once per cycle):
-# retraces per entry point (none in the port: PyTorch runs eagerly), the
-# seconds each kernel-library build paid, and host<->device transfers
-# per direction. A steady-state fleet shows the first two FLAT.
-INFERNO_JIT_RETRACES_TOTAL = "inferno_jit_retraces_total"
+# the seconds each kernel-library build paid, and host<->device
+# transfers per direction. A steady-state fleet shows the first FLAT.
+# The reference package's inferno_jit_retraces_total is not exported:
+# PyTorch runs eagerly, so it could only ever read zero.
 INFERNO_JIT_COMPILE_SECONDS = "inferno_jit_compile_seconds"
 INFERNO_HOST_DEVICE_TRANSFERS_TOTAL = "inferno_host_device_transfers_total"
+# GC audit (obs/profile.py GC_AUDIT, drained once per cycle): seconds
+# the interpreter's garbage collector stopped the process, per generation
+INFERNO_GC_PAUSE_SECONDS_TOTAL = "inferno_gc_pause_seconds_total"
 # streaming reconcile core (stream/): how metric deltas reach the
 # engine (pushed remote-write, the streamed-scrape fallback, watch
 # kicks, cadence backstop passes) and the wall time from a load change
@@ -176,6 +179,11 @@ INFERNO_HOST_DEVICE_TRANSFERS_TOTAL = "inferno_host_device_transfers_total"
 # reaction-latency distribution the event-driven core exists to shrink
 INFERNO_STREAM_EVENTS_TOTAL = "inferno_stream_events_total"
 INFERNO_STREAM_LAG_SECONDS = "inferno_stream_lag_seconds"
+# the lag's first part: a load change's wait from the door's offer to
+# the start of the cycle that serves it; and one remote-write request's
+# time through the door (read, decode, ingest, offer), whatever its status
+INFERNO_STREAM_QUEUE_WAIT_SECONDS = "inferno_stream_queue_wait_seconds"
+INFERNO_STREAM_DOOR_SECONDS = "inferno_stream_door_seconds"
 # streaming overload/quarantine accounting (docs/robustness.md,
 # "Streaming fault matrix"): every event the ingest door refuses is
 # COUNTED with a reason, never silently dropped — the shed counter plus
@@ -518,15 +526,9 @@ class MetricsEmitter:
             "this cycle (limited mode only; empty when capacity-unaware)",
             [LABEL_GENERATION], registry=self.registry,
         )
-        # device audit (obs/profile.py): retraces per entry point (none
-        # in the port), kernel-library builds + host<->device transfers,
-        # drained per cycle. The names are the reference package's.
-        self.jit_retraces = Counter(
-            INFERNO_JIT_RETRACES_TOTAL.removesuffix("_total"),
-            "Retraces (recompilations) per entry point; the PyTorch "
-            "port runs eagerly and never adds to this",
-            [LABEL_FN], registry=self.registry,
-        )
+        # device audit (obs/profile.py): kernel-library builds +
+        # host<->device transfers, drained per cycle. The names are the
+        # reference package's.
         self.jit_compile_seconds = Histogram(
             INFERNO_JIT_COMPILE_SECONDS,
             "Wall time paid per kernel-library build and load (the "
@@ -541,6 +543,12 @@ class MetricsEmitter:
             "points (h2d: arrays staged onto device per kernel "
             "dispatch; d2h: result arrays pulled back)",
             [LABEL_DIRECTION], registry=self.registry,
+        )
+        self.gc_pause_seconds = Counter(
+            INFERNO_GC_PAUSE_SECONDS_TOTAL.removesuffix("_total"),
+            "Seconds the interpreter's garbage collector stopped the "
+            "process, per generation (0, 1, 2)",
+            [LABEL_GENERATION], registry=self.registry,
         )
         # streaming reconcile core (stream/core.py): ingest events per
         # source, and the observed->published reaction-latency
@@ -561,6 +569,24 @@ class MetricsEmitter:
             "streaming core to the re-sized allocation being published",
             buckets=(0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 1.0,
                      2.5, 5.0, 10.0, 30.0, 60.0, 120.0),
+            registry=self.registry,
+        )
+        self.stream_queue_wait = Histogram(
+            INFERNO_STREAM_QUEUE_WAIT_SECONDS,
+            "Wall time from a load change being offered at the door to "
+            "the start of the micro-cycle or full pass that serves it "
+            "(the debounce plus a busy consumer), for the same load "
+            "changes as the lag",
+            buckets=(0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5,
+                     1.0, 2.5, 5.0, 10.0, 30.0, 60.0),
+            registry=self.registry,
+        )
+        self.stream_door = Histogram(
+            INFERNO_STREAM_DOOR_SECONDS,
+            "Wall time of one POST /api/v1/write through the door: "
+            "read, decode, ingest, offer, whatever its status",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0),
             registry=self.registry,
         )
         # overload/quarantine shedding + warm-restart checkpoint
@@ -689,12 +715,10 @@ class MetricsEmitter:
 
     def emit_device_audit(self, delta: dict) -> None:
         """One cycle's device-audit delta (obs.DeviceAudit.delta shape):
-        per-fn retrace counts, the compile events, and per-direction
-        host<->device transfer counts."""
+        the compile events and per-direction host<->device transfer
+        counts (its retrace counts, always empty here, are not
+        exported)."""
         with self._lock:
-            for fn, count in (delta.get("retraces") or {}).items():
-                if count > 0:
-                    self.jit_retraces.labels(**{LABEL_FN: fn}).inc(count)
             for fn, seconds in (delta.get("compiles") or []):
                 self.jit_compile_seconds.labels(
                     **{LABEL_FN: fn}).observe(seconds)
@@ -796,9 +820,25 @@ class MetricsEmitter:
         scrape poller, and watch listeners."""
         self.stream_events.labels(**{LABEL_SOURCE: source}).inc()
 
+    def emit_gc_pauses(self, seconds: tuple) -> None:
+        """The collector's pause seconds per generation since the last
+        cycle (index = generation)."""
+        with self._lock:
+            for gen, sec in enumerate(seconds):
+                self.gc_pause_seconds.labels(
+                    **{LABEL_GENERATION: str(gen)}).inc(max(sec, 0.0))
+
     def emit_stream_lag(self, seconds: float) -> None:
         """One consumed load change's observed->published wall time."""
         self.stream_lag.observe(seconds)
+
+    def emit_stream_queue_wait(self, seconds: float) -> None:
+        """One consumed load change's wait, offer to cycle start."""
+        self.stream_queue_wait.observe(seconds)
+
+    def emit_stream_door(self, seconds: float) -> None:
+        """One remote-write request's time through the door."""
+        self.stream_door.observe(seconds)
 
     def emit_stream_shed(self, reason: str) -> None:
         """One event refused at the streaming ingest door. Thread-safe

@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..obs import trace as obs_trace
 from ..ops import fused
 from ..ops.arena import CandidateArena
 from ..ops.batched import (
@@ -396,26 +397,33 @@ class System:
         parallel.decide_batch_sharded on a mesh): size -> replica-count
         -> re-analyze -> value on the device, ONE readback of the packed
         result, allocations materialized for the feasible lanes only.
-        Identical candidate lanes are solved once."""
-        all_rows = self._group_rows(pairs, epilogue=True)
-        n_eff = all_rows["max_batch"]
-        rows, lane_of = self._dedup_rows(all_rows)
-        self.last_unique_lanes += len(rows["alpha"])
-        # K bucketed for shape stability under load drift (see k_max_bucket)
-        k_max = k_max_bucket(k_max_for(rows["max_batch"]))
-        q, slo, epi = self._pack_group(rows, self._group_bucket(mesh), mesh)
-        if mesh is not None:
-            packed = decide_batch_sharded(q, slo, epi, k_max, mesh,
-                                          ttft_percentile=ttft_percentile,
-                                          backend=backend)
-        else:
-            packed = fused.decide_batch(q, slo, epi, k_max,
-                                        ttft_percentile=ttft_percentile,
-                                        backend=backend)
-        # on a lane mesh the one readback is also the gather of the
-        # sharded result, tallied per shard count
-        rows_h = readback(packed, shards=(
-            mesh.size if is_lane_mesh(mesh) else 1)).tolist()
+        Identical candidate lanes are solved once. Inside a cycle trace
+        the group's pack and its decision are the spans `system.pack`
+        and `system.decide` (the readback waits for the device, so the
+        latter ends when the decision has)."""
+        with obs_trace.span("system.pack", lanes=len(pairs)):
+            all_rows = self._group_rows(pairs, epilogue=True)
+            n_eff = all_rows["max_batch"]
+            rows, lane_of = self._dedup_rows(all_rows)
+            self.last_unique_lanes += len(rows["alpha"])
+            # K bucketed for shape stability under load drift (see
+            # k_max_bucket)
+            k_max = k_max_bucket(k_max_for(rows["max_batch"]))
+            q, slo, epi = self._pack_group(rows, self._group_bucket(mesh),
+                                           mesh)
+        with obs_trace.span("system.decide"):
+            if mesh is not None:
+                packed = decide_batch_sharded(
+                    q, slo, epi, k_max, mesh,
+                    ttft_percentile=ttft_percentile, backend=backend)
+            else:
+                packed = fused.decide_batch(q, slo, epi, k_max,
+                                            ttft_percentile=ttft_percentile,
+                                            backend=backend)
+            # on a lane mesh the one readback is also the gather of the
+            # sharded result, tallied per shard count
+            rows_h = readback(packed, shards=(
+                mesh.size if is_lane_mesh(mesh) else 1)).tolist()
         feasible = rows_h[fused.ROW_FEASIBLE]
         replicas = rows_h[fused.ROW_REPLICAS]
         costs = rows_h[fused.ROW_COST]

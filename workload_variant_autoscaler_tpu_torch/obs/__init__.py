@@ -12,7 +12,8 @@ at module load without cycles):
 - `profile`: the per-cycle wall-clock attribution ledger (exact
   partition of the cycle wall into exclusive buckets + an unattributed
   residual), the device audit (compiles / host<->device
-  transfers), and the text flamegraph renderers.
+  transfers), the GC audit (the interpreter's collection pauses), and
+  the text flamegraph renderers.
 - `goodput`: the sim/live-agnostic GoodputMeter — SLO-attained
   demand-seconds over chip-cost-seconds, badput partitioned into the
   GOODPUT_* buckets; driven by the digital twin in sim time and by the
@@ -54,8 +55,11 @@ from .goodput import (
 )
 from .profile import (
     DEVICE_AUDIT,
+    GC_AUDIT,
+    GC_SPAN,
     UNATTRIBUTED,
     DeviceAudit,
+    GcAudit,
     ProfileRecord,
     Profiler,
     ResidualSampler,
@@ -85,11 +89,14 @@ __all__ = [
     "DEBUG_ROUTES",
     "DEGRADED_RUNGS",
     "DEVICE_AUDIT",
+    "GC_AUDIT",
+    "GC_SPAN",
     "DecisionBuilder",
     "DecisionInputs",
     "DecisionLog",
     "DecisionRecord",
     "DeviceAudit",
+    "GcAudit",
     "GOODPUT_BUCKETS",
     "GOODPUT_DEGRADED",
     "GOODPUT_LAGGED",

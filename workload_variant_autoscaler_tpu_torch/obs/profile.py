@@ -14,6 +14,9 @@ cycle's wall time — every millisecond lands in exactly one bucket:
 - `backoff.sleep`    retry-ladder sleeps, carved out of the dependency
                      span that paid them (from the `backoff-retry`
                      events with_backoff records)
+- `gc`               the interpreter's gen-2 collections inside the
+                     cycle (`GC_AUDIT`'s pauses, recorded as `gc` spans
+                     under the span each one interrupted)
 - `unattributed`     wall covered by NO span at all (gaps directly
                      under the cycle root)
 
@@ -31,10 +34,11 @@ sizing group (`utils/device.readback`), the arena's host-to-device
 column copies (`ops/arena.py`), and the first-use build and load of the
 CUDA library (`ops/_build.py`, a compile of `bisect_kernel`). PyTorch
 runs eagerly, so nothing ever counts as a retrace. The reconciler drains
-the per-cycle delta onto `inferno_jit_retraces_total{fn}` /
-`inferno_jit_compile_seconds{fn}` /
+the per-cycle delta onto `inferno_jit_compile_seconds{fn}` /
 `inferno_host_device_transfers_total{direction}` (the series keep the
-reference package's names).
+reference package's names). Beside it, the GC audit (`GC_AUDIT`) times
+the interpreter's collections, drained per cycle onto
+`inferno_gc_pause_seconds_total{generation}`.
 
 `ResidualSampler` is the cheap stdlib fallback that itemizes the
 residual Python time by caller (sys._current_frames sampled from a
@@ -47,19 +51,26 @@ import rule).
 
 from __future__ import annotations
 
+import gc
 import os
 import sys
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
-from .trace import Span, Trace, _capacity_from_env
+from .trace import Span, Trace, _capacity_from_env, _current_span
 
 DEFAULT_PROFILE_BUFFER = 64
 
 UNATTRIBUTED = "unattributed"
 BUCKET_SLEEP = "backoff.sleep"
+# a gen-2 collection's pause, recorded after the cycle (GcAudit)
+GC_SPAN = "gc"
+# a collection stops every thread, so its pause owns its wall outright:
+# deeper than any span, fan-out siblings included
+_GC_DEPTH = 1 << 30
 # the event name + attribute with_backoff records before each retry sleep
 _SLEEP_EVENT = "backoff-retry"
 _SLEEP_ATTR = "sleep_s"
@@ -109,7 +120,8 @@ def _span_intervals(trace: Trace):
         end = start + dur
         start = min(max(start, 0.0), wall)
         end = min(max(end, start), wall)
-        out.append((sp, start, end, depth(sp)))
+        out.append((sp, start, end,
+                    _GC_DEPTH if sp.name == GC_SPAN else depth(sp)))
     return root, out
 
 
@@ -403,6 +415,68 @@ class DeviceAudit:
 
 
 DEVICE_AUDIT = DeviceAudit()
+
+
+# -- garbage-collection audit ------------------------------------------------
+
+
+class GcAudit:
+    """Process-wide pauses of the interpreter's garbage collector, from
+    one `gc.callbacks` hook that the first Reconciler installs: seconds
+    per generation, and for each gen-2 pause its start
+    and end on `time.perf_counter` with the span that was current in the
+    thread that set it off.
+
+    Any allocation can set a collection off, inside any lock. So the hook
+    does arithmetic on plain floats and one deque append, and nothing
+    else: no lock, no tracer method, no Prometheus object (Tracer.begin
+    and a counter's inc take threading.Locks, and a collection set off
+    while one is held would deadlock on it). The interpreter runs one
+    collection at a time, so each start pairs with its stop. The
+    reconciler reads `totals()` and `gen2_pauses()` once per cycle. The
+    newest `keep` gen-2 pauses are kept: a span one holds keeps its
+    trace alive no longer than the trace ring (64 cycles by default)
+    would at a pause a cycle."""
+
+    def __init__(self, keep: int = 64) -> None:
+        self.seconds = [0.0, 0.0, 0.0]
+        self.pauses: deque = deque(maxlen=keep)   # (t0, t1, span) gen 2
+        self._t0: Optional[float] = None
+        self._span: Optional[Span] = None
+        self.installed = False
+        self._install_lock = threading.Lock()
+
+    def hook(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._span = _current_span.get()
+            self._t0 = time.perf_counter()
+            return
+        t1 = time.perf_counter()
+        if self._t0 is None:
+            return
+        gen = info["generation"]
+        self.seconds[gen] += t1 - self._t0
+        if gen == 2:
+            self.pauses.append((self._t0, t1, self._span))
+        self._t0 = self._span = None
+
+    def install(self) -> None:
+        """Add the hook to gc.callbacks, once per process."""
+        with self._install_lock:
+            if not self.installed:
+                self.installed = True
+                gc.callbacks.append(self.hook)
+
+    def totals(self) -> tuple:
+        """Pause seconds per generation since the hook went in."""
+        return tuple(self.seconds)
+
+    def gen2_pauses(self) -> list:
+        """The newest gen-2 pauses: (start, end, span or None)."""
+        return list(self.pauses)
+
+
+GC_AUDIT = GcAudit()
 
 
 # -- residual sampler --------------------------------------------------------

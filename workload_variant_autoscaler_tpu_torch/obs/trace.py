@@ -169,7 +169,8 @@ class Span:
 
 
 class Trace:
-    """One cycle's span tree, in span-start order (the root first)."""
+    """One cycle's span tree, in span-start order (the root first; spans
+    recorded after the fact, `Tracer.record`, last)."""
 
     def __init__(self, trace_id: str):
         self.trace_id = trace_id
@@ -232,11 +233,12 @@ class Tracer:
     ring is guarded by a lock: the debug endpoint thread snapshots while
     the reconcile thread appends.
 
-    `perf` is the DURATION clock. By default a tracer on wall time uses
-    `time.perf_counter` (monotonic, high resolution), but a tracer whose
-    `now` was injected derives durations from that same clock — a
-    twin/sim-time run (emulator/twin.py) records sim durations, not the
-    host's wall time, so rerunning the same scenario produces
+    `perf` is the DURATION clock: `time.perf_counter` (monotonic, high
+    resolution) unless the caller passes another. An injected `now` sets
+    the spans' timestamps only, so a controller on an injected clock
+    still traces the host time its work took. A twin/sim-time run
+    (emulator/twin.py) passes its sim clock as `perf` too and records
+    sim durations, so rerunning the same scenario produces
     byte-identical span durations."""
 
     def __init__(self, capacity: Optional[int] = None,
@@ -245,9 +247,7 @@ class Tracer:
         self.capacity = capacity or _capacity_from_env(
             "WVA_TRACE_BUFFER", DEFAULT_TRACE_BUFFER)
         self.now = now
-        if perf is None:
-            perf = time.perf_counter if now is time.time else now
-        self.perf = perf
+        self.perf = perf or time.perf_counter
         self._traces: deque[Trace] = deque(maxlen=self.capacity)
         self._lock = threading.Lock()
         self._seq = 0
@@ -284,6 +284,21 @@ class Tracer:
         with self._lock:
             trace.add(sp)
         sp._token = _current_span.set(sp)
+        return sp
+
+    def record(self, name: str, parent: Span, start_perf: float,
+               end_perf: float, **attrs: Any) -> Span:
+        """Add a FINISHED span under `parent`, timed by the caller on
+        this tracer's perf clock: an interval measured where no span
+        could be opened (a collection pause). It is never active."""
+        sp = Span(self, parent.trace, name, parent.trace_id,
+                  self._next_id("s"), parent.span_id, attrs)
+        sp.start_unix = parent.start_unix + (start_perf - parent.start_perf)
+        sp.start_perf = start_perf
+        sp.duration_ms = (end_perf - start_perf) * 1000.0
+        sp._ended = True
+        with self._lock:
+            parent.trace.add(sp)
         return sp
 
     def span(self, name: str, **attrs: Any) -> "_SpanContext":

@@ -915,7 +915,7 @@ class StreamCore:
                 self._absorb_cycle_loads(t_start)
             self._mark_consumed(plan.events)
         if result is not None and plan.events:
-            self._observe_lag(plan, result)
+            self._observe_lag(plan, result, t_start)
         if result is not None:
             self._maybe_checkpoint()
         return result
@@ -924,9 +924,11 @@ class StreamCore:
         with self._lock:
             self.failures[kind] += 1
 
-    def _observe_lag(self, plan: _Plan, result) -> None:
+    def _observe_lag(self, plan: _Plan, result, t_start: float) -> None:
         """load-change observed -> allocation published, per drained
-        group whose variants the cycle actually processed."""
+        group whose variants the cycle actually processed; for the same
+        groups, the wait in the queue (observed -> the start, `t_start`,
+        of the cycle that served it), so lag = wait + service."""
         now = self.clock()
         snap = self.state.snapshot
         published = set(result.processed)
@@ -936,6 +938,8 @@ class StreamCore:
                      if va.spec.model_id == model and va.namespace == ns]
                     if snap is not None else [])
             if plan.kind == "full" or any(k in published for k in keys):
+                self.emitter.emit_stream_queue_wait(
+                    max(t_start - pending.t_observed, 0.0))
                 self.emitter.emit_stream_lag(
                     max(now - pending.t_observed, 0.0))
 

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from typing import Optional
 
 from ..collector import active_family, collect_load
@@ -193,64 +194,73 @@ def ingest_write_request(core, body: bytes,
 def remote_write_middleware(core):
     """app -> app wrapper mounting POST /api/v1/write in front of the
     metrics exposition (same composition shape as obs.debug_middleware;
-    the caller places it inside the auth gate)."""
+    the caller places it inside the auth gate). Each request to the
+    path is timed onto inferno_stream_door_seconds, whatever its
+    status."""
+
+    def door(environ, start_response):
+        if environ.get("REQUEST_METHOD", "") != "POST":
+            return _reply(start_response, "405 Method Not Allowed",
+                          {"error": "POST only"})
+        if core.source_quarantined(SOURCE_REMOTE_WRITE):
+            # the per-source breaker is open: the push door is
+            # closed while the ScrapePoller fallback covers the
+            # fleet; senders should back off and retry later
+            core.emitter.emit_stream_shed(SHED_SOURCE_QUARANTINED)
+            return _reply(start_response, "429 Too Many Requests",
+                          {"error": "source quarantined"},
+                          extra_headers=[("Retry-After", "60")])
+        try:
+            length = int(environ.get("CONTENT_LENGTH") or 0)
+        except ValueError:
+            length = 0
+        limit = core.max_body_bytes()
+        if length > limit:
+            core.emitter.emit_stream_shed(SHED_BODY_TOO_LARGE)
+            return _reply(start_response,
+                          "413 Request Entity Too Large",
+                          {"error": f"body exceeds {limit} bytes"})
+        body = environ["wsgi.input"].read(length) if length else b""
+        encoding = (environ.get("HTTP_CONTENT_ENCODING")
+                    or "snappy").strip().lower()
+        try:
+            ingested, shed = ingest_write_request(core, body,
+                                                  encoding=encoding)
+        except WireError as e:
+            core.emitter.emit_stream_shed(SHED_DECODE_ERROR)
+            status = ("415 Unsupported Media Type"
+                      if "content encoding" in str(e)
+                      else "400 Bad Request")
+            return _reply(start_response, status, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001 — the WSGI worker must never crash
+            core.emitter.emit_stream_shed(SHED_DECODE_ERROR)
+            log.warning("remote-write ingest failed",
+                        extra=kv(error=str(e)))
+            return _reply(start_response, "400 Bad Request",
+                          {"error": "malformed payload"})
+        if shed:
+            # partial refusal: the sender learns exactly how much
+            # landed; shed groups are metered and re-covered by the
+            # requested backstop pass, never silently lost
+            return _reply(start_response, "429 Too Many Requests",
+                          {"error": "some groups shed"},
+                          extra_headers=[
+                              ("X-Ingested-Groups", str(ingested)),
+                              ("X-Shed-Groups", str(shed)),
+                          ])
+        start_response("204 No Content",
+                       [("X-Ingested-Groups", str(ingested))])
+        return [b""]
 
     def wrap(inner_app):
         def app(environ, start_response):
             if environ.get("PATH_INFO", "") != REMOTE_WRITE_PATH:
                 return inner_app(environ, start_response)
-            if environ.get("REQUEST_METHOD", "") != "POST":
-                return _reply(start_response, "405 Method Not Allowed",
-                              {"error": "POST only"})
-            if core.source_quarantined(SOURCE_REMOTE_WRITE):
-                # the per-source breaker is open: the push door is
-                # closed while the ScrapePoller fallback covers the
-                # fleet; senders should back off and retry later
-                core.emitter.emit_stream_shed(SHED_SOURCE_QUARANTINED)
-                return _reply(start_response, "429 Too Many Requests",
-                              {"error": "source quarantined"},
-                              extra_headers=[("Retry-After", "60")])
+            t0 = time.perf_counter()
             try:
-                length = int(environ.get("CONTENT_LENGTH") or 0)
-            except ValueError:
-                length = 0
-            limit = core.max_body_bytes()
-            if length > limit:
-                core.emitter.emit_stream_shed(SHED_BODY_TOO_LARGE)
-                return _reply(start_response,
-                              "413 Request Entity Too Large",
-                              {"error": f"body exceeds {limit} bytes"})
-            body = environ["wsgi.input"].read(length) if length else b""
-            encoding = (environ.get("HTTP_CONTENT_ENCODING")
-                        or "snappy").strip().lower()
-            try:
-                ingested, shed = ingest_write_request(core, body,
-                                                      encoding=encoding)
-            except WireError as e:
-                core.emitter.emit_stream_shed(SHED_DECODE_ERROR)
-                status = ("415 Unsupported Media Type"
-                          if "content encoding" in str(e)
-                          else "400 Bad Request")
-                return _reply(start_response, status, {"error": str(e)})
-            except Exception as e:  # noqa: BLE001 — the WSGI worker must never crash
-                core.emitter.emit_stream_shed(SHED_DECODE_ERROR)
-                log.warning("remote-write ingest failed",
-                            extra=kv(error=str(e)))
-                return _reply(start_response, "400 Bad Request",
-                              {"error": "malformed payload"})
-            if shed:
-                # partial refusal: the sender learns exactly how much
-                # landed; shed groups are metered and re-covered by the
-                # requested backstop pass, never silently lost
-                return _reply(start_response, "429 Too Many Requests",
-                              {"error": "some groups shed"},
-                              extra_headers=[
-                                  ("X-Ingested-Groups", str(ingested)),
-                                  ("X-Shed-Groups", str(shed)),
-                              ])
-            start_response("204 No Content",
-                           [("X-Ingested-Groups", str(ingested))])
-            return [b""]
+                return door(environ, start_response)
+            finally:
+                core.emitter.emit_stream_door(time.perf_counter() - t0)
 
         return app
 

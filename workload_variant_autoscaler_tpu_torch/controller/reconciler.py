@@ -857,8 +857,8 @@ class Reconciler:
                                   what="list:VariantAutoscaling")
             # refresh the streaming snapshot: every full pass re-anchors
             # what later scoped micro-cycles solve against (`vas` below
-            # are this cycle's working objects; _apply overlays the
-            # fresh post-write copies)
+            # are this cycle's working objects; _apply writes the
+            # published status onto them)
             self.state.snapshot = FleetSnapshot(
                 operator_cm=dict(operator_cm),
                 accelerator_cm=accelerator_cm,
@@ -874,8 +874,8 @@ class Reconciler:
             active = [va for va in active
                       if full_name(va.name, va.namespace) in scope]
         # fleet mode: the cycle's LIST copies are the condition-metrics
-        # source of truth (updated with the fresh post-write objects in
-        # _apply), so the post-publish re-LIST is not paid; legacy keeps
+        # source of truth (_apply writes the published status onto
+        # them), so the post-publish re-LIST is not paid; legacy keeps
         # the LIST (None). Scoped cycles always use the in-hand objects
         # (a per-event LIST would defeat the point).
         self._cycle_condition_vas = (
@@ -1357,9 +1357,9 @@ class Reconciler:
         truth), kube-state-metrics shape without kube-state-metrics —
         the shipped alerts can key on MetricsAvailable/OptimizationReady/
         PerfModelAccurate directly. Fleet mode reads the cycle's in-hand
-        VA objects (the LIST copies, overlaid with the fresh post-write
-        objects from _apply) instead of paying a third LIST per cycle;
-        legacy mode keeps the post-publish re-LIST. Observability only:
+        VA objects (the LIST copies, carrying the status _apply wrote)
+        instead of paying a third LIST per cycle; legacy mode keeps the
+        post-publish re-LIST. Observability only:
         a failure here never fails the cycle."""
         try:
             if self._cycle_condition_vas is not None:
@@ -2240,10 +2240,10 @@ class Reconciler:
             key = full_name(va.name, va.namespace)
             if key not in optimized:
                 continue
-            # power is derived from the solve + the published count, not
-            # from the fresh CR — record it before the re-get so a
-            # transient apiserver failure can't erase a live variant's
-            # series from the wholesale-replaced gauge
+            # power is derived from the solve + the published count:
+            # record it before the status write, so a transient apiserver
+            # failure can't erase a live variant's series from the
+            # wholesale-replaced gauge
             power[(va.name, va.namespace, optimized[key].accelerator)] = (
                 system.variant_power_watts(
                     key, replicas=optimized[key].num_replicas))
@@ -2266,37 +2266,27 @@ class Reconciler:
             publishing.append((va, _deploy))
 
         def publish_one(va: crd.VariantAutoscaling, deploy: Deployment):
-            """Per-variant status write (re-get, signal emission, status
-            PUT) — the residual unavoidably-per-variant kube traffic,
-            fanned out over WVA_COLLECT_FANOUT workers. Returns the
-            written object (the condition-metrics source), or None when
-            the re-get failed (logged; the variant keeps its previous
-            published state)."""
+            """Per-variant status write (signal emission, status PUT) —
+            the residual unavoidably-per-variant kube traffic, fanned
+            out over WVA_COLLECT_FANOUT workers. The status is written
+            on the cycle's own object (this cycle's LIST copy, or the
+            streaming snapshot's working copy), which carries the
+            resourceVersion of the last write; a stale one is refreshed
+            by _update_status's conflict retry. Returns the written
+            object (the condition-metrics source)."""
             key = full_name(va.name, va.namespace)
-            try:
-                fresh = self._kube_call(
-                    lambda: self.kube.get_variant_autoscaling(va.name, va.namespace),
-                    what="get:VariantAutoscaling/fresh",
-                )
-            except Exception as e:  # noqa: BLE001
-                log.error("failed to re-get variant", extra=kv(variant=va.name, error=str(e)))
-                return None
-
-            fresh.status.current_alloc = va.status.current_alloc
             # the previously PUBLISHED recommendation, for the scaling-
-            # decision counter (captured before it is overwritten)
-            prev_desired = fresh.status.desired_optimized_alloc.num_replicas
-            fresh.status.desired_optimized_alloc = optimized[key]
-            fresh.status.actuation.applied = False
-            # carry conditions set during preparation across the fresh get
-            # (reference controller.go:367-370)
-            fresh.status.conditions = va.status.conditions
+            # decision counter (read before it is overwritten; nothing
+            # between the LIST and here writes it)
+            prev_desired = va.status.desired_optimized_alloc.num_replicas
+            va.status.desired_optimized_alloc = optimized[key]
+            va.status.actuation.applied = False
 
             crd.set_condition(
-                fresh, crd.TYPE_OPTIMIZATION_READY, "True",
+                va, crd.TYPE_OPTIMIZATION_READY, "True",
                 crd.REASON_OPTIMIZATION_SUCCEEDED,
-                f"Optimization completed: {fresh.status.desired_optimized_alloc.num_replicas} "
-                f"replicas on {fresh.status.desired_optimized_alloc.accelerator}",
+                f"Optimization completed: {va.status.desired_optimized_alloc.num_replicas} "
+                f"replicas on {va.status.desired_optimized_alloc.accelerator}",
                 now=self.now(),
             )
 
@@ -2304,30 +2294,32 @@ class Reconciler:
             # current-replicas signal instead of a per-variant re-GET;
             # legacy keeps the live read
             if self.actuator.emit_metrics(
-                    fresh, prev_desired=prev_desired,
+                    va, prev_desired=prev_desired,
                     current=(deploy.current_replicas()
                              if fleet_mode else None)):
-                fresh.status.actuation.applied = True
+                va.status.actuation.applied = True
 
-            self._update_status(fresh)
-            return fresh
+            self._update_status(va)
+            return va
 
         outcomes = fanout(
             [lambda va=va, deploy=deploy: publish_one(va, deploy)
              for va, deploy in publishing],
             workers=self._fanout_workers(), label="apply")
         snap = self.state.snapshot
-        for fresh, _err in outcomes:
-            if fresh is None:
+        for written, _err in outcomes:
+            if written is None:
                 continue
-            key = full_name(fresh.name, fresh.namespace)
+            key = full_name(written.name, written.namespace)
             if self._cycle_condition_vas is not None:
-                self._cycle_condition_vas[key] = fresh
+                self._cycle_condition_vas[key] = written
             # keep the streaming snapshot's working copies at the
             # just-published state, so the next scoped micro-cycle
-            # stabilizes/steps against what is actually on the CR
+            # stabilizes/steps against what is actually on the CR (the
+            # written object is already theirs unless _prepare re-got
+            # it: WVA_FLEET_COLLECTION=off)
             if snap is not None and key in snap.vas:
-                snap.vas[key] = fresh
+                snap.vas[key] = written
         self._publish_power(power)
         self._set_probe_targets(probe_targets)
 
@@ -2338,8 +2330,10 @@ class Reconciler:
             try:
                 self.kube.update_variant_autoscaling_status(va)
             except ConflictError:
-                # stale resourceVersion: refresh it and retry with our
-                # intended status (conditions/allocs computed this cycle)
+                # stale resourceVersion (another writer since this
+                # cycle's read): refresh it and retry with our intended
+                # status (conditions/allocs computed this cycle)
+                self.emitter.emit_status_write_conflict()
                 fresh = self.kube.get_variant_autoscaling(va.name, va.namespace)
                 va.metadata.resource_version = fresh.metadata.resource_version
                 raise

@@ -172,6 +172,11 @@ INFERNO_HOST_DEVICE_TRANSFERS_TOTAL = "inferno_host_device_transfers_total"
 # GC audit (obs/profile.py GC_AUDIT, drained once per cycle): seconds
 # the interpreter's garbage collector stopped the process, per generation
 INFERNO_GC_PAUSE_SECONDS_TOTAL = "inferno_gc_pause_seconds_total"
+# status writes that met a stale resourceVersion (409) and were retried:
+# the publish stage writes on the cycle's own copy of each VA, so this
+# counts how often another writer changed a VA between the cycle's read
+# and its write
+INFERNO_STATUS_WRITE_CONFLICTS_TOTAL = "inferno_status_write_conflicts_total"
 # streaming reconcile core (stream/): how metric deltas reach the
 # engine (pushed remote-write, the streamed-scrape fallback, watch
 # kicks, cadence backstop passes) and the wall time from a load change
@@ -550,6 +555,12 @@ class MetricsEmitter:
             "process, per generation (0, 1, 2)",
             [LABEL_GENERATION], registry=self.registry,
         )
+        self.status_write_conflicts = Counter(
+            INFERNO_STATUS_WRITE_CONFLICTS_TOTAL.removesuffix("_total"),
+            "VariantAutoscaling status writes refused for a stale "
+            "resourceVersion and retried with the refreshed one",
+            registry=self.registry,
+        )
         # streaming reconcile core (stream/core.py): ingest events per
         # source, and the observed->published reaction-latency
         # distribution. Buckets reach down to 10 ms (the event-driven
@@ -827,6 +838,12 @@ class MetricsEmitter:
             for gen, sec in enumerate(seconds):
                 self.gc_pause_seconds.labels(
                     **{LABEL_GENERATION: str(gen)}).inc(max(sec, 0.0))
+
+    def emit_status_write_conflict(self) -> None:
+        """One status write that met a stale resourceVersion. Called
+        from the publish fan-out's workers (prometheus counters lock
+        internally)."""
+        self.status_write_conflicts.inc()
 
     def emit_stream_lag(self, seconds: float) -> None:
         """One consumed load change's observed->published wall time."""

@@ -36,10 +36,10 @@ from ..ops.arena import CandidateArena
 class FleetSnapshot:
     """The last FULL reconcile pass's config + fleet view, reused by
     scoped micro-cycles. `vas` holds the cycle's WORKING CR objects,
-    overlaid with the fresh post-status-write copies in `_apply`, so a
-    later scoped cycle reads the published state it must stabilize
-    against. Refreshed by every full pass; invalidated semantics are
-    time-based (the backstop cadence bounds its age)."""
+    which `_apply` publishes from (status and resourceVersion as
+    written), so a later scoped cycle reads the published state it must
+    stabilize against. Refreshed by every full pass; invalidated
+    semantics are time-based (the backstop cadence bounds its age)."""
 
     operator_cm: dict
     accelerator_cm: dict            # parsed form (translate.parse_...)

@@ -8,7 +8,9 @@
   capacity slices); its lane digests equal the JAX engine's; the stagger,
   shard-memo, warm-restart and checkpoint-corruption cases of
   tests/test_hier.py hold for it; its checkpoint payload after a drive
-  equals the JAX engine's.
+  equals the JAX engine's; a two-level cycle opens its `hier.*` spans
+  (the delegate branch none), and `inferno_hier_shards_solved` reads
+  the shards it solved.
 - `stream/checkpoint.py` and `CandidateArena.snapshot_slabs` /
   `restore_slabs`: exact round-trips, clean refusals.
 - `controller/reconciler.py`: `SolveEngineSelector` picks and rebuilds
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 import helpers
+import reconcile_cluster as rc
 from test_hier import make_v5e_spec
 from test_incremental_solve import ChurnDriver, make_spec, run_cycle
 from test_torch_incremental import (
@@ -45,6 +48,7 @@ from workload_variant_autoscaler_tpu.solver import sig_digest as jsig_digest
 from workload_variant_autoscaler_tpu_torch.controller import (
     SolveEngineSelector,
 )
+from workload_variant_autoscaler_tpu_torch.obs.trace import Tracer
 from workload_variant_autoscaler_tpu_torch.ops.arena import CandidateArena
 from workload_variant_autoscaler_tpu_torch.solver import (
     HierarchicalSolveEngine,
@@ -274,6 +278,96 @@ def test_empty_cycle_leaves_the_system_its_arena():
         # the System can still size on its own after the engine's cycle
         system.calculate(backend="kernel")
         assert system.last_solve_lanes > 0 and own.packs >= 1
+
+
+# ---------------------------------------------------------------------------
+# the engine's spans and its solved-shard gauge
+# ---------------------------------------------------------------------------
+
+HIER_PASSES = ("hier.signatures",)
+
+
+def traced_cycles(engine, cycles):
+    """`cycles` churned cycles through `engine`, each under a cycle root
+    span: (stats, the cycle's spans) per cycle."""
+    tracer = Tracer(capacity=cycles)
+    fleet = ChurnDriver(seed=11, epsilon=EPS)
+    out = []
+    for _ in range(cycles):
+        spec, rungs, rung = churn_spec(fleet)
+        with tracer.span("reconcile"):
+            _, stats = port_cycle(spec, engine, rungs=rungs, cycle_rung=rung)
+        out.append((stats, tracer.traces(1)[0].spans))
+    return out
+
+
+def test_two_level_cycle_opens_a_span_per_pass_and_solved_shard():
+    cycles = traced_cycles(hier_engine(), 12)
+    assert any(0 < st.shards_solved < st.shards for st, _ in cycles)
+    for stats, spans in cycles:
+        names = [s.name for s in spans]
+        assert stats.shards > 1
+        for name in HIER_PASSES:
+            assert names.count(name) == 1, (name, names)
+        shards = [s for s in spans if s.name == "hier.shard"]
+        assert len(shards) == stats.shards_solved
+        assert len({s.attributes["shard"] for s in shards}) == len(shards)
+        assert sum(s.attributes["lanes"] for s in shards) \
+            == stats.lanes_solved
+        # the group's pack and decision nest under the shard that sized it
+        shard_ids = {s.span_id for s in shards}
+        inner = [s for s in spans
+                 if s.name in ("system.pack", "system.decide")]
+        assert inner and all(s.parent_id in shard_ids for s in inner) \
+            if shards else not inner
+
+
+def test_delegate_branch_opens_no_hier_span():
+    cycles = traced_cycles(hier_engine(min_variants=1000), 4)
+    names = [[s.name for s in spans] for _stats, spans in cycles]
+    assert all(stats.shards == 0 for stats, _spans in cycles)
+    assert not [n for ns in names for n in ns if n.startswith("hier.")]
+    assert "system.decide" in names[0]      # the first cycle sizes all
+
+
+def solved_shard_gauge(emitter) -> float:
+    for metric in emitter.registry.collect():
+        for s in metric.samples:
+            if s.name == "inferno_hier_shards_solved":
+                return s.value
+    raise AssertionError("inferno_hier_shards_solved not exported")
+
+
+@pytest.mark.parametrize("mode", ["on", "auto", "off"])
+def test_solved_shard_gauge_reads_the_engine(mode, monkeypatch):
+    """Forced on at 64 VAs the gauge reads each cycle's shards_solved
+    (every shard on the first cycle, fewer once the loads stop moving);
+    below the auto floor (the delegate branch) and on the flat engine it
+    reads 0."""
+    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    c = rc.Cluster(variants=64, models=16, operator=(
+        ("WVA_HIER_SOLVE", mode), ("WVA_HIER_SHARD_VARIANTS", "16")))
+    clock = rc.Clock()
+    load = rc.loads(c)
+    b = rc.build(rc.PORT, c, clock, load, device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(3)
+    seen = []
+    for cycle in range(4):
+        b.rec.reconcile()
+        engine = b.rec._solve_engine_obj
+        seen.append((engine.last_stats.shards,
+                     engine.last_stats.shards_solved,
+                     solved_shard_gauge(b.emitter)))
+        clock.advance(60.0)
+        if cycle < 2:
+            rc.churn(load, 0.1, rng)
+        rc.set_loads(b, load)
+    if mode == "on":
+        assert all(n == 4 and gauge == solved for n, solved, gauge in seen)
+        assert seen[0][1] == 4 and any(solved < 4 for _n, solved, _g in seen)
+    else:
+        assert all(n == 0 and solved == 0 and gauge == 0
+                   for n, solved, gauge in seen), seen
 
 
 # ---------------------------------------------------------------------------

@@ -1056,7 +1056,8 @@ class Reconciler:
                 stats.modes, stats.lanes_solved, stats.lanes_skipped)
             if isinstance(solve_engine, HierarchicalSolveEngine):
                 self.emitter.emit_hier_solve(
-                    stats.shards, solve_engine.drain_ckpt_events())
+                    stats.shards, stats.shards_solved,
+                    solve_engine.drain_ckpt_events())
         else:
             # scoped micro-cycles stay unsharded: their sub-batches are
             # tiny and the stream arena is resident on one device

@@ -152,10 +152,12 @@ INFERNO_COLLECTION_SECONDS = "inferno_collection_seconds"
 INFERNO_SOLVE_MODE_TOTAL = "inferno_solve_mode_total"
 INFERNO_SOLVE_LANES = "inferno_solve_lanes"
 # hierarchical two-level solve (solver/hierarchy.py): the super-shard
-# partition size and the warm cold-start checkpoint lifecycle — restarts
-# that skipped the forced full pass are visible here, as is every
-# discarded (torn/stale/reconfigured) arena checkpoint
+# partition size, the shards the last cycle solved, and the warm
+# cold-start checkpoint lifecycle — restarts that skipped the forced
+# full pass are visible here, as is every discarded
+# (torn/stale/reconfigured) arena checkpoint
 INFERNO_HIER_SHARDS = "inferno_hier_shards"
+INFERNO_HIER_SHARDS_SOLVED = "inferno_hier_shards_solved"
 INFERNO_ARENA_CHECKPOINT_TOTAL = "inferno_arena_checkpoint_total"
 # limited-mode inventory visibility: schedulable chips per TPU generation
 # as the collector saw them this cycle — a maintenance drain or a spot
@@ -513,6 +515,13 @@ class MetricsEmitter:
             "the largest single shard, not the fleet",
             registry=self.registry,
         )
+        self.hier_shards_solved = Gauge(
+            INFERNO_HIER_SHARDS_SOLVED,
+            "Super-shards that sent any lanes to the sizing step in the "
+            "hierarchical solve's last cycle (0 while the flat engine or "
+            "the small-fleet delegate path is in effect)",
+            registry=self.registry,
+        )
         self.arena_checkpoint = Counter(
             INFERNO_ARENA_CHECKPOINT_TOTAL.removesuffix("_total"),
             "Warm cold-start arena checkpoint lifecycle events (save: "
@@ -713,12 +722,15 @@ class MetricsEmitter:
             self.solve_lanes.labels(
                 **{LABEL_STATE: STATE_SKIPPED}).set(lanes_skipped)
 
-    def emit_hier_solve(self, shards: int, ckpt_events: dict) -> None:
+    def emit_hier_solve(self, shards: int, shards_solved: int,
+                        ckpt_events: dict) -> None:
         """One cycle's hierarchical-solve telemetry: the partition size
-        gauge and any arena-checkpoint lifecycle events drained from the
-        engine (event keys normalized to dashed label values)."""
+        and solved-shard gauges and any arena-checkpoint lifecycle events
+        drained from the engine (event keys normalized to dashed label
+        values)."""
         with self._lock:
             self.hier_shards.set(shards)
+            self.hier_shards_solved.set(shards_solved)
             for event, count in ckpt_events.items():
                 if count > 0:
                     self.arena_checkpoint.labels(**{

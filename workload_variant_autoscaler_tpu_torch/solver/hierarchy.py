@@ -53,6 +53,13 @@ only onto a mesh of the same size. `WVA_HIER_SOLVE=off` selects the
 flat engine (controller/reconciler.py); `auto` delegates to the flat
 code path below `WVA_HIER_MIN_VARIANTS`, so small fleets keep the flat
 behavior.
+
+**Spans.** Inside a cycle trace (obs/trace.py) a two-level cycle opens
+`hier.signatures` (the lane and value signatures over the fleet) and
+one `hier.shard` per solved shard (its `System.calculate(only=...)`,
+under which `system.pack` and `system.decide` nest, and the
+allocation-cache clones; attributes `shard`, `variants`, `lanes`). The
+delegate branch opens neither.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from ..models import System
 from ..models.allocation import Allocation
 from ..models.spec import OptimizerSpec
 from ..models.system import fused_solve_enabled
+from ..obs import trace as obs_trace
 from ..ops.arena import CandidateArena, ShardedFleetArena
 from ..parallel import is_lane_mesh
 from ..stream.checkpoint import (
@@ -454,15 +462,16 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
             all_forced, reason = True, "backend/mesh/percentile changed"
         self._analyze_sig = analyze_sig
 
-        lane_sigs = {
-            name: self._lane_signature(system, server, ttft_percentile,
-                                       rungs.get(name, "healthy"))
-            for name, server in system.servers.items()
-        }
-        self._pending_value_sigs = {
-            name: self._value_signature(server)
-            for name, server in system.servers.items()
-        }
+        with obs_trace.span("hier.signatures"):
+            lane_sigs = {
+                name: self._lane_signature(system, server, ttft_percentile,
+                                           rungs.get(name, "healthy"))
+                for name, server in system.servers.items()
+            }
+            self._pending_value_sigs = {
+                name: self._value_signature(server)
+                for name, server in system.servers.items()
+            }
 
         # changed = lane signature drift; on the restore cycle a fresh
         # signature digest-matching the snapshot adopts the tuple and
@@ -525,17 +534,19 @@ class HierarchicalSolveEngine(IncrementalSolveEngine):
                              ttft_percentile=ttft_percentile, only=set())
         for sid in sorted(by_shard):
             sel = by_shard[sid]
-            system.arena = self._shard_arena(sid, eff_mesh, system.dtype)
-            system.calculate(backend=backend, mesh=eff_mesh,
-                             ttft_percentile=ttft_percentile, only=sel)
-            total_lanes += system.last_solve_lanes
-            unique_lanes += system.last_unique_lanes
-            for name in sel:
-                server = system.servers[name]
-                self._lane_sigs[name] = lane_sigs[name]
-                self._alloc_cache[name] = {
-                    acc: alloc.clone()
-                    for acc, alloc in server.all_allocations.items()}
+            with obs_trace.span("hier.shard", shard=sid, variants=len(sel)):
+                system.arena = self._shard_arena(sid, eff_mesh, system.dtype)
+                system.calculate(backend=backend, mesh=eff_mesh,
+                                 ttft_percentile=ttft_percentile, only=sel)
+                obs_trace.set_attribute("lanes", system.last_solve_lanes)
+                total_lanes += system.last_solve_lanes
+                unique_lanes += system.last_unique_lanes
+                for name in sel:
+                    server = system.servers[name]
+                    self._lane_sigs[name] = lane_sigs[name]
+                    self._alloc_cache[name] = {
+                        acc: alloc.clone()
+                        for acc, alloc in server.all_allocations.items()}
         system.last_solve_lanes = total_lanes
         system.last_unique_lanes = unique_lanes
         # the port's System always packs through `system.arena`: hand it

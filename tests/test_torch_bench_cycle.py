@@ -104,8 +104,12 @@ def test_collect_counts_and_decisions_equal(monkeypatch, mode):
     assert len(rec.reconcile().processed) == N
     want = counts(kube, prom)
     # the port writes each status on the cycle's own VA object: the JAX
-    # package's re-GET before each of the N status writes is not sent
+    # package's re-GET before each of the N status writes is not sent;
+    # with fleet collection on, the timed cycle reads the VAs from the
+    # cache the warm-up's LIST primed, not from a LIST of its own
     want["kube_gets"] -= N
+    if mode == "on":
+        want["kube_lists"] -= 1
     monkeypatch.delenv("WVA_FLEET_COLLECTION")
 
     kubes = capture_kubes(monkeypatch, pc)
@@ -148,9 +152,11 @@ def test_profile_ledger_shape_equal(monkeypatch):
     assert "WVA_PROFILE_SAMPLE_HZ" not in os.environ
     assert pp.bucket_keys(p, pp.PORT_ONLY) == sorted(j["buckets"])
     # the port publishes on the cycle's own VA objects: no re-GET span
-    # under stage:publish
+    # under stage:publish; and reads them from its cache: no LIST span
+    # under stage:config
     assert pp.tree_shape(p["tree"], pp.PORT_ONLY) \
-        == pp.tree_shape(j["tree"], ("kube.get:VariantAutoscaling/fresh",))
+        == pp.tree_shape(j["tree"], ("kube.get:VariantAutoscaling/fresh",
+                                     "kube.list:VariantAutoscaling"))
     assert {"system.pack", "system.decide"} <= set(p["buckets"])
     assert p["attributed_fraction"] >= 0.9
     assert p["device"]["retraces"] == {} == j["jax"]["retraces"]

@@ -4,7 +4,8 @@ streaming snapshot's working copy. No GET precedes a status write.
 
 On a small cluster (tests/reconcile_cluster.py) with the port's
 `InMemoryKube` wrapped to count verbs: a full pass and a micro-cycle
-send no per-VA GET and one status write per published VA, and publish
+send no per-VA GET and one status write per published VA (and the full
+pass after them no LIST: tests/test_torch_va_cache.py), and publish
 what the JAX package's `Reconciler` publishes, field by field; a status
 write that meets a stale resourceVersion is retried with the cycle's
 status and counted on `inferno_status_write_conflicts_total`; the
@@ -101,6 +102,19 @@ def test_full_pass_and_micro_cycle_send_no_per_va_get():
     res = p.rec.reconcile(scope=keys)
     assert sorted(res.processed) == sorted(keys)
     assert counts == {"update_variant_autoscaling_status": len(keys)}
+    assert statuses(p, c) == statuses(j, c)
+
+    # the next full pass reads the VAs from the cache the watch events
+    # keep: the micro-cycle's own writes cost it no LIST and no GET
+    clock.advance(60.0)
+    rc.churn(load, 1.0, np.random.default_rng(4))
+    rc.set_loads(j, load)
+    rc.set_loads(p, load)
+    counts.clear()
+    j.rec.reconcile()
+    res = p.rec.reconcile()
+    assert len(res.processed) == c.variants
+    assert counts == {"update_variant_autoscaling_status": c.variants}
     assert statuses(p, c) == statuses(j, c)
     assert conflicts(p) == 0.0
 

@@ -48,16 +48,21 @@ class ConflictError(Exception):
 class WatchEvent:
     """One apiserver watch event, reduced to what the controller keys on.
 
-    The reconcile loop is level-triggered (every cycle re-reads all
-    state), so events carry identity only — no object payload. Matches
-    the reference's event usage: it enqueues a reconcile request and
-    drops the object (variantautoscaling_controller.go:456-487).
+    The reconcile loop is level-triggered, so events carry identity
+    only — no object payload: the VariantAutoscaling cache (va_cache.py)
+    re-reads an object an event names. Matches the reference's event
+    usage: it enqueues a reconcile request and drops the object
+    (variantautoscaling_controller.go:456-487). `resource_version` is
+    the object's version after the change, where the source knows it
+    (RestKube's watch stream; "" otherwise): the cache tells the echoes
+    of the controller's own writes by it.
     """
 
     type: str        # ADDED | MODIFIED | DELETED
     kind: str        # VariantAutoscaling | ConfigMap | Deployment
     name: str
     namespace: str
+    resource_version: str = ""
 
 
 @dataclass
@@ -145,6 +150,7 @@ class InMemoryKube:
         self._fault_plan = None
         self.status_update_count = 0
         self._watchers: list[Callable[[WatchEvent], None]] = []
+        self._gap_watchers: list[Callable[[], None]] = []
         # authn/authz fakes for the metrics endpoint's TokenReview/SAR
         # path: token -> (username, groups); (user, verb, path) grants
         self._tokens: dict[str, tuple[str, list[str]]] = {}
@@ -159,12 +165,21 @@ class InMemoryKube:
         event handlers)."""
         self._watchers.append(fn)
 
+    def add_gap_listener(self, fn: Callable[[], None]) -> None:
+        """Register a callback fired whenever an event is lost (a
+        watch-drop window of the fault plan), as a watch client learns
+        of a gap from a reconnect or a `410 Gone`."""
+        self._gap_watchers.append(fn)
+
     def _notify(self, event: WatchEvent) -> None:
         plan = self._fault_plan
         if plan is not None and plan.watch_dropping():
             # a dropped ?watch=true stream: the mutation happened, the
             # event never reaches the controller — the level-triggered
-            # cadence cycle is the only thing that may notice
+            # cadence cycle is the only thing that may notice, and a
+            # cache fed by events must re-read the whole fleet
+            for fn in list(self._gap_watchers):
+                fn()
             return
         for fn in list(self._watchers):
             fn(event)
@@ -693,26 +708,24 @@ class RestKube:
             va.metadata.resource_version = rv
 
     def patch_owner_reference(self, va: VariantAutoscaling, deploy: Deployment) -> None:
-        patch = {
-            "metadata": {
-                "ownerReferences": [
-                    {
-                        "apiVersion": "apps/v1",
-                        "kind": "Deployment",
-                        "name": deploy.name,
-                        "uid": deploy.uid,
-                        "controller": True,
-                        "blockOwnerDeletion": False,
-                    }
-                ]
-            }
+        ref = {
+            "apiVersion": "apps/v1",
+            "kind": "Deployment",
+            "name": deploy.name,
+            "uid": deploy.uid,
+            "controller": True,
+            "blockOwnerDeletion": False,
         }
         obj = self._request(
             "PATCH",
             f"/apis/{GROUP}/{VERSION}/namespaces/{va.namespace}/{PLURAL}/{va.name}",
-            body=patch,
+            body={"metadata": {"ownerReferences": [ref]}},
             content_type="application/merge-patch+json",
         )
+        # carry the patch and the new resourceVersion back onto the
+        # caller's object, as InMemoryKube does: a cached VA that kept
+        # its old references would be patched again every full pass
+        va.metadata.owner_references = [ref]
         rv = ((obj or {}).get("metadata") or {}).get("resourceVersion")
         if rv:
             va.metadata.resource_version = rv
@@ -758,13 +771,22 @@ class RestKube:
         on_event: Callable[[WatchEvent], None],
         stop: threading.Event,
         timeout_seconds: int = 300,
+        on_gap: Callable[[bool], None] = lambda _live: None,
     ) -> None:
         """Blocking watch loop over all VariantAutoscalings; call from a
-        dedicated thread. Reconnects forever until `stop` is set."""
-        self._watch_loop(
-            f"/apis/{GROUP}/{VERSION}/{PLURAL}", "VariantAutoscaling",
-            on_event, stop, timeout_seconds=timeout_seconds,
-        )
+        dedicated thread. Reconnects forever until `stop` is set. A cache
+        the events feed loses them in the loop's gaps: `on_gap(True)`
+        each time a LIST pins the stream (every change from then on
+        arrives), `on_gap(False)` each time the stream is lost and when
+        the loop ends."""
+        try:
+            self._watch_loop(
+                f"/apis/{GROUP}/{VERSION}/{PLURAL}", "VariantAutoscaling",
+                on_event, stop, timeout_seconds=timeout_seconds,
+                on_gap=on_gap,
+            )
+        finally:
+            on_gap(False)
 
     def watch_configmap(
         self,
@@ -791,6 +813,7 @@ class RestKube:
         stop: threading.Event,
         field_selector: Optional[str] = None,
         timeout_seconds: int = 300,
+        on_gap: Callable[[bool], None] = lambda _live: None,
     ) -> None:
         """List-then-watch with resourceVersion bookkeeping.
 
@@ -801,7 +824,8 @@ class RestKube:
         from the last seen RV, and on `410 Gone` / ERROR events the
         outer loop re-LISTs from scratch (the cache window moved on).
         The reconcile loop is level-triggered, so a re-list loses
-        nothing — the next cycle re-reads all state anyway.
+        nothing for it; `on_gap` tells a cache the events feed of each
+        pin and each loss (watch_variant_autoscalings).
         """
         backoff = 1.0
         stream_backoff = 2.0
@@ -833,6 +857,7 @@ class RestKube:
                 backoff = min(backoff * 2, 30.0)
                 continue
             backoff = 1.0
+            on_gap(True)
 
             # 2. WATCH: stream from rv until expiry or error
             relist = False
@@ -857,6 +882,7 @@ class RestKube:
                         # informers rate-limit relists: never hammer the
                         # apiserver with back-to-back LIST+WATCH cycles
                         relist = True
+                        on_gap(False)
                         stop.wait(1.0)
                         continue
                     stream.raise_for_status()
@@ -880,6 +906,7 @@ class RestKube:
                         if etype == "ERROR":
                             # e.g. `410 Gone` delivered mid-stream
                             relist = True
+                            on_gap(False)
                             stop.wait(1.0)
                             break
                         meta = obj.get("metadata") or {}
@@ -891,6 +918,7 @@ class RestKube:
                             type=etype, kind=kind,
                             name=meta.get("name", ""),
                             namespace=meta.get("namespace", ""),
+                            resource_version=meta.get("resourceVersion", ""),
                         ))
                     # clean server-side expiry: resume from last rv
                 except Exception as e:  # noqa: BLE001 — reconnect forever
@@ -899,9 +927,10 @@ class RestKube:
                     # 403/429 on ?watch=true must not retry hot at a
                     # fixed cadence (the LIST path already backs off,
                     # and a re-list is free for a level-triggered loop)
+                    relist = True
+                    on_gap(False)
                     stop.wait(stream_backoff)
                     stream_backoff = min(stream_backoff * 2, 60.0)
-                    relist = True
                 finally:
                     if stream is not None:
                         stream.close()

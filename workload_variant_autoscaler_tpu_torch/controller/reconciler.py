@@ -118,6 +118,7 @@ from ..utils import (
 from . import crd, translate
 from .degradation import DegradationState, DegradationTracker, state_for_cache_tier
 from .kube import Deployment, KubeClient
+from .va_cache import VACache
 
 log = get_logger("wva.controller")
 
@@ -284,6 +285,11 @@ class Reconciler:
         self.dtype = resolve_dtype(dtype)
         self.kube = kube
         self.prom = prom
+        # the full pass's VariantAutoscalings, kept current by the
+        # client's watch events where it calls back synchronously
+        # (start_watches feeds it from RestKube's watch stream)
+        self.va_cache = VACache()
+        self.va_cache.attach(kube)
         self.emitter = emitter or MetricsEmitter()
         self.actuator = Actuator(kube, self.emitter)
         self.config_namespace = config_namespace
@@ -745,6 +751,8 @@ class Reconciler:
             return self._reconcile_timed(mark)
         except BaseException as e:
             err = e
+            # the cycle's VA objects may hold statuses it never wrote
+            self.va_cache.invalidate()
             # the cycle died before publishing anything: HOLD (the
             # published fleet state is frozen until a cycle succeeds)
             self._degradation.record_cycle(DegradationState.HOLD)
@@ -829,6 +837,41 @@ class Reconciler:
                 if sp is not None and sp.trace is root.trace:
                     self.tracer.record(GC_SPAN, sp, t0, t1)
 
+    def _read_fleet(self, operator_cm: dict) -> list:
+        """A full pass's VariantAutoscalings, as the reference's manager
+        cache serves its `List`: from the watch-fed cache when it can
+        serve (va_cache.py), else one LIST that primes it.
+        WVA_FLEET_COLLECTION=off LISTs every pass: its _prepare re-GETs
+        each VA and writes on that copy, which the cache never holds."""
+        cache = self.va_cache
+        fleet_mode = self._fleet_collection_enabled(operator_cm)
+        if fleet_mode:
+            try:
+                vas = cache.read(self._refetch_va)
+            except Exception as e:  # noqa: BLE001 — LIST instead
+                log.warning("VariantAutoscaling cache read failed; listing",
+                            extra=kv(error=str(e)))
+                vas = None
+            if vas is not None:
+                self.emitter.emit_va_read("cache")
+                return vas
+        else:
+            cache.invalidate()
+        epoch = cache.begin_list()
+        vas = self._kube_call(self.kube.list_variant_autoscalings,
+                              what="list:VariantAutoscaling")
+        if fleet_mode:
+            cache.prime(vas, epoch)
+        self.emitter.emit_va_read("list")
+        return vas
+
+    def _refetch_va(self, key: tuple[str, str]):
+        namespace, name = key
+        self.emitter.emit_va_refetch()
+        return self._kube_call(
+            lambda: self.kube.get_variant_autoscaling(name, namespace),
+            what="get:VariantAutoscaling")
+
     def _reconcile_timed(self, mark) -> ReconcileResult:
         scope = self.state.scope
         snap = self.state.snapshot if scope is not None else None
@@ -853,8 +896,7 @@ class Reconciler:
             accelerator_cm = self.read_accelerator_config()
             service_class_cm = self.read_service_class_config()
 
-            vas = self._kube_call(self.kube.list_variant_autoscalings,
-                                  what="list:VariantAutoscaling")
+            vas = self._read_fleet(operator_cm)
             # refresh the streaming snapshot: every full pass re-anchors
             # what later scoped micro-cycles solve against (`vas` below
             # are this cycle's working objects; _apply writes the
@@ -1134,6 +1176,9 @@ class Reconciler:
                 )
             except KeyError:
                 log.info("no optimized allocation for variant", extra=kv(variant=va.name))
+                # _prepare set its conditions and current allocation,
+                # and nothing writes them this cycle
+                self.va_cache.mark_dirty(va)
                 self._record_decision(
                     key, outcome=LIMITED,
                     reason="no feasible allocation for variant",
@@ -2333,16 +2378,23 @@ class Reconciler:
             except ConflictError:
                 # stale resourceVersion (another writer since this
                 # cycle's read): refresh it and retry with our intended
-                # status (conditions/allocs computed this cycle)
+                # status (conditions/allocs computed this cycle). The
+                # other writer may have changed more than the status:
+                # the cache re-reads the VA on the next full pass.
                 self.emitter.emit_status_write_conflict()
+                self.va_cache.mark_dirty(va)
                 fresh = self.kube.get_variant_autoscaling(va.name, va.namespace)
                 va.metadata.resource_version = fresh.metadata.resource_version
                 raise
 
         try:
-            self._kube_call(attempt, what="update_status:VariantAutoscaling")
+            with self.va_cache.writing(va):
+                self._kube_call(attempt,
+                                what="update_status:VariantAutoscaling")
         except Exception as e:  # noqa: BLE001
             log.error("failed to update status", extra=kv(variant=va.name, error=str(e)))
+            # the in-hand status is not what the API server stores
+            self.va_cache.mark_dirty(va)
 
     # -- demand-breakout probe (beyond reference) -------------------------
     # The loop samples Prometheus once per GLOBAL_OPT_INTERVAL; a ramp
@@ -2480,17 +2532,26 @@ class Reconciler:
 
     def start_watches(self, stop: threading.Event) -> bool:
         """Hook watch events to kick(), whatever the kube client offers:
-        InMemoryKube exposes synchronous listeners; RestKube exposes
-        blocking ?watch=true loops, run here on daemon threads. Returns
-        True when a watch source was attached."""
+        InMemoryKube exposes synchronous listeners (the VA cache took
+        its own at construction); RestKube exposes blocking ?watch=true
+        loops, run here on daemon threads, the VA loop feeding the VA
+        cache too, with its gap reports. Returns True when a watch
+        source was attached."""
         kube = self.kube
         if hasattr(kube, "add_watch_listener"):
             kube.add_watch_listener(self.on_watch_event)
             return True
         if hasattr(kube, "watch_variant_autoscalings"):
+            cache = self.va_cache
+
+            def on_va_event(ev) -> None:
+                cache.on_event(ev)
+                self.on_watch_event(ev)
+
             threading.Thread(
                 target=kube.watch_variant_autoscalings,
-                args=(self.on_watch_event, stop),
+                args=(on_va_event, stop),
+                kwargs={"on_gap": cache.on_gap},
                 name="wva-watch-va", daemon=True,
             ).start()
             threading.Thread(

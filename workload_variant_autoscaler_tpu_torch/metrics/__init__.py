@@ -179,6 +179,11 @@ INFERNO_GC_PAUSE_SECONDS_TOTAL = "inferno_gc_pause_seconds_total"
 # counts how often another writer changed a VA between the cycle's read
 # and its write
 INFERNO_STATUS_WRITE_CONFLICTS_TOTAL = "inferno_status_write_conflicts_total"
+# where a full pass read the fleet's VariantAutoscalings from: the cache
+# the watch events keep (controller/va_cache.py) or a LIST; and the
+# single-VA GETs the cache sent for keys a foreign event marked
+INFERNO_VA_READS_TOTAL = "inferno_va_reads_total"
+INFERNO_VA_REFETCHES_TOTAL = "inferno_va_refetches_total"
 # streaming reconcile core (stream/): how metric deltas reach the
 # engine (pushed remote-write, the streamed-scrape fallback, watch
 # kicks, cadence backstop passes) and the wall time from a load change
@@ -570,6 +575,18 @@ class MetricsEmitter:
             "resourceVersion and retried with the refreshed one",
             registry=self.registry,
         )
+        self.va_reads = Counter(
+            INFERNO_VA_READS_TOTAL.removesuffix("_total"),
+            "Full passes by where they read the VariantAutoscalings "
+            "from (cache: the watch-fed cache; list: a LIST)",
+            [LABEL_SOURCE], registry=self.registry,
+        )
+        self.va_refetches = Counter(
+            INFERNO_VA_REFETCHES_TOTAL.removesuffix("_total"),
+            "Single-VariantAutoscaling GETs a full pass sent for keys a "
+            "foreign watch event or a failed write marked",
+            registry=self.registry,
+        )
         # streaming reconcile core (stream/core.py): ingest events per
         # source, and the observed->published reaction-latency
         # distribution. Buckets reach down to 10 ms (the event-driven
@@ -856,6 +873,14 @@ class MetricsEmitter:
         from the publish fan-out's workers (prometheus counters lock
         internally)."""
         self.status_write_conflicts.inc()
+
+    def emit_va_read(self, source: str) -> None:
+        """One full pass's fleet read: `cache` or `list`."""
+        self.va_reads.labels(**{LABEL_SOURCE: source}).inc()
+
+    def emit_va_refetch(self) -> None:
+        """One GET of a VA the cache held as dirty."""
+        self.va_refetches.inc()
 
     def emit_stream_lag(self, seconds: float) -> None:
         """One consumed load change's observed->published wall time."""

@@ -1,20 +1,17 @@
-"""bench_torch_collect: fleet-scale collection against the sequential
-per-variant path, with the port's reconcile cycle on the card.
+"""bench_torch_collect: fleet-scale collection, with the port's reconcile
+cycle on the card.
 
-The counterpart of bench_collect.py. It drives the same 512-variant fleet
-(8 models, 64 variants each; the Premium class, slo-tpot 24 and slo-ttft
-500, so every sizing runs the mean form of the bisection kernel, B1)
-through full reconcile cycles against a latency-injecting Prometheus
-stand-in (every query pays a fixed 2 ms round-trip, the dominant term of
-real in-cluster collection), in both modes:
+The counterpart of bench_collect.py's fleet leg. It drives the same
+512-variant fleet (8 models, 64 variants each; the Premium class,
+slo-tpot 24 and slo-ttft 500, so every sizing runs the mean form of the
+bisection kernel, B1) through full reconcile cycles against a
+latency-injecting Prometheus stand-in (every query pays a fixed 2 ms
+round-trip, the dominant term of real in-cluster collection): ~8 grouped
+queries per cycle, demuxed per variant, and one Deployment LIST. The
+port has no per-variant collection path to compare against.
 
-- fleet (WVA_FLEET_COLLECTION on, the default): ~8 grouped queries per
-  cycle, demuxed per variant; one Deployment LIST.
-- sequential (WVA_FLEET_COLLECTION=off): the reference shape, ~6-7
-  queries and 1-2 kube GETs per variant per cycle.
-
-Each mode pays one warm-up cycle (the kernel library's build and first
-launch) before the timed cycle, so the comparison is steady state. The
+One warm-up cycle (the kernel library's build and first launch) comes
+before the timed cycle, so the time is steady state. The
 cluster admits objects without the CRD schema
 (`InMemoryKube(validate_schema=False)`), as bench_collect.py's does.
 
@@ -22,9 +19,9 @@ cluster admits objects without the CRD schema
 
 The Reconciler runs on `cuda` unless `--device cpu` is asked, in float32;
 without CUDA the run raises, it never drops to the CPU on its own. Prints
-ONE JSON line: bench_collect.py's keys, and the keys that say where the
-cycle ran (bench_torch_loop.where: the card's name and power limit, the
-dtype, the engine backend) with each mode's kernel_launches (B1/B2
+ONE JSON line: bench_collect.py's keys of the fleet leg, and the keys
+that say where the cycle ran (bench_torch_loop.where: the card's name and
+power limit, the dtype, the engine backend) with the kernel_launches (B1/B2
 launches and sizing readbacks per reconcile cycle, from the port's
 counters). It writes the line to PATH only when `--out` is given, and
 never to a BENCH_*.json (those are the JAX package's CPU records) or under
@@ -326,11 +323,11 @@ def build_cluster(n_variants: int = N_VARIANTS, *, device=None, dtype=None,
     return kube, prom, rec
 
 
-def timed_cycle(mode: str, n_variants: int = N_VARIANTS, *, device=None,
+def timed_cycle(n_variants: int = N_VARIANTS, *, device=None,
                 dtype=None) -> dict:
     """A warm-up cycle, then the timed one (host clock, synchronized
-    with the card), with WVA_FLEET_COLLECTION=`mode`."""
-    with knobs(WVA_FLEET_COLLECTION=mode), cycle_launches() as rows:
+    with the card)."""
+    with cycle_launches() as rows:
         kube, prom, rec = build_cluster(n_variants, device=device,
                                         dtype=dtype)
         rec.reconcile()             # warm-up: build, launch, first publish
@@ -342,7 +339,7 @@ def timed_cycle(mode: str, n_variants: int = N_VARIANTS, *, device=None,
             torch.cuda.synchronize(rec.device)
         wall_s = time.perf_counter() - t0
     if len(result.processed) != n_variants:
-        raise RuntimeError(f"collect {mode}: {len(result.processed)} of "
+        raise RuntimeError(f"collect: {len(result.processed)} of "
                            f"{n_variants} processed, skipped={result.skipped}")
     return {
         "wall_s": round(wall_s, 3),
@@ -357,8 +354,7 @@ def timed_cycle(mode: str, n_variants: int = N_VARIANTS, *, device=None,
 
 def run(n_variants: int = N_VARIANTS, *, device=None, dtype=None) -> dict:
     place = where(device, dtype)
-    fleet = timed_cycle("on", n_variants, device=device, dtype=dtype)
-    sequential = timed_cycle("off", n_variants, device=device, dtype=dtype)
+    fleet = timed_cycle(n_variants, device=device, dtype=dtype)
     return {
         "metric": "reconcile_cycle_wall_s",
         "bench": "collect",
@@ -367,12 +363,9 @@ def run(n_variants: int = N_VARIANTS, *, device=None, dtype=None) -> dict:
         "latency_ms": LATENCY_S * 1000.0,
         "value": fleet["wall_s"],
         "unit": "s/cycle",
-        "vs_baseline": round(sequential["wall_s"] / fleet["wall_s"], 2),
         **place,
         "fleet": fleet,
-        "sequential": sequential,
         "fleet_queries_per_cycle": fleet["prom_queries"],
-        "sequential_queries_per_cycle": sequential["prom_queries"],
     }
 
 

@@ -390,7 +390,7 @@ def run(smoke: bool = False, mesh_devices: int = MESH_DEVICES, *,
                 "walls": measure(SMOKE_SIZES, mesh, **on)}
     walls = measure(SIZES, mesh, **on)
     greedy = greedy_compare(GREEDY_N, **on)
-    cycle_ms = timed_cycle("on", 512, **on)["wall_s"] * 1000.0
+    cycle_ms = timed_cycle(512, **on)["wall_s"] * 1000.0
     headline = walls["8192"]["sharded"]["analyze_optimize_ms_p50"]
     ratio = headline / cycle_ms
     return {

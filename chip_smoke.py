@@ -1270,8 +1270,8 @@ def timed_saves(engine) -> list:
 
 def fleet_scale(workdir):
     """Phase 7c: FLEET_VARIANTS variants x 8 slices, unlimited, through
-    the engine the seam gives by default (`_solve_engine`, with a
-    checkpoint path): FLEET_CYCLES churn cycles (the first all forced,
+    the engine the controller runs by default (`select_solve_engine`,
+    with a checkpoint path): FLEET_CYCLES churn cycles (the first all forced,
     then steady, a shard forced full on the cycles its stagger phase
     comes due), a warm restart from the checkpoint of the engine's
     first save against a cold start on that cycle's fleet, a persistent
@@ -1284,12 +1284,12 @@ def fleet_scale(workdir):
     timed_cycle's result), the saves and the checkpoint's size."""
     from workload_variant_autoscaler_tpu_torch import IncrementalSolveEngine
     from workload_variant_autoscaler_tpu_torch.controller import (
-        SolveEngineSelector)
+        select_solve_engine)
 
     fleet = build_fleet(FLEET_VARIANTS, SEED + 5)
     path = os.path.join(workdir, "fleet.ckpt")
     knobs = {"WVA_ARENA_CHECKPOINT": path}
-    engine = SolveEngineSelector()._solve_engine(knobs)
+    engine = select_solve_engine(knobs, None)
     saves = timed_saves(engine)
     runs, kept = [], {}
     with cycle_clock() as spent:
@@ -1312,7 +1312,7 @@ def fleet_scale(workdir):
         at = min(kept)
         for how, cm in (("warm", knobs), ("cold", {})):
             t0 = time.perf_counter()
-            eng = SolveEngineSelector()._solve_engine(cm)
+            eng = select_solve_engine(cm, None)
             built = (time.perf_counter() - t0) * 1e3
             digests = timed_method(eng, "_lane_digest")
             out = timed_cycle(kept[at], eng, spent)
@@ -1428,10 +1428,10 @@ def hier_phase():
     then 7c; returns hier_summary's arguments after the card line."""
     from workload_variant_autoscaler_tpu_torch import HierarchicalSolveEngine
     from workload_variant_autoscaler_tpu_torch.controller import (
-        SolveEngineSelector)
+        select_solve_engine)
     from workload_variant_autoscaler_tpu_torch.solver import hierarchy
 
-    default = SolveEngineSelector()._solve_engine({})
+    default = select_solve_engine({}, None)
     made = HierarchicalSolveEngine(full_every=HIER_FULL_EVERY)
     knobs = ("epsilon", "shard_target", "min_variants", "checkpoint_path")
     if type(default) is not HierarchicalSolveEngine \
@@ -3371,9 +3371,7 @@ def bench13_job(name: str, device: str, dtype_name: str, smoke: bool):
         result = bc.run(64 if smoke else bc.N_VARIANTS, **on)
     elif name == "collect-decisions":
         capture(bc)
-        result = {mode: bc.timed_cycle(mode, 64 if smoke else
-                                       bc.N_VARIANTS, **on)
-                  for mode in ("on", "off")}
+        result = bc.timed_cycle(64 if smoke else bc.N_VARIANTS, **on)
     elif name == "profile":
         result = bp.run(smoke, **on)
     elif name == "fuse":
@@ -3508,19 +3506,16 @@ def phase_13(card) -> dict:
     ref, ref_pub, _, cpu_wall = by[("collect-decisions", "cpu", "float64")]
     mine, pub, _, card_wall = by[("collect-decisions", dev, "float64")]
     counts = ("prom_queries", "kube_lists", "kube_gets")
-    for mode in ("on", "off"):
-        if {k: mine[mode][k] for k in counts} \
-                != {k: ref[mode][k] for k in counts}:
-            raise AssertionError(f"13 collect {mode}: float64 counts differ "
-                                 f"between the card and the CPU")
-    if pub != ref_pub or len(pub) != 2:
+    if {k: mine[k] for k in counts} != {k: ref[k] for k in counts}:
+        raise AssertionError("13 collect: float64 counts differ between "
+                             "the card and the CPU")
+    if pub != ref_pub or len(pub) != 1:
         raise AssertionError("13 collect: float64 decisions on the card "
                              "differ from the CPU's")
     hold_launches("collect-decisions", mine)
     log(json.dumps({"phase": "13", "card": card,
                     "script": "bench_torch_collect", "dtype": "float64",
-                    "equal_to_cpu": True, "modes": ["on", "off"],
-                    "variants": len(pub[0]), "wall_s_card": card_wall,
+                    "equal_to_cpu": True, "variants": len(pub[0]), "wall_s_card": card_wall,
                     "wall_s_cpu": cpu_wall}))
 
     job = ("profile", dev, "float32")

@@ -8,7 +8,8 @@ sides run with WVA_NATIVE_KERNEL=false (bench_profile.py and
 bench_fuse.py pin it; the CPU's default would be the native backend,
 which reads nothing back and so counts no sizing). Compared exactly:
 query, list and get counts and every VA's published accelerator and
-replicas in both collection modes; the attribution ledger's bucket
+replicas (the port's one collection path against both of the JAX
+package's); the attribution ledger's bucket
 keyset and span-tree shape (less the spans only the port opens,
 bench_torch_profile.PORT_ONLY) and the partition invariant; readbacks per
 cycle; fused, staged and JAX decisions; the 4096-server fleet's unique
@@ -93,38 +94,44 @@ def test_constants_equal():
 
 @pytest.mark.parametrize("mode", ["on", "off"])
 def test_collect_counts_and_decisions_equal(monkeypatch, mode):
-    """timed_cycle in both collection modes: the timed cycle's queries,
-    LISTs and GETs, and every VA's published decision."""
+    """timed_cycle against bench_collect.py with WVA_FLEET_COLLECTION=
+    `mode`: every VA's published decision equals the JAX package's on
+    either of its paths, and the port, which reads no such knob, sends
+    the timed cycle's queries, LISTs and GETs of the JAX fleet path in
+    both cases."""
     jc = jax_script("bench_collect")
-    monkeypatch.setenv("WVA_FLEET_COLLECTION", mode)
-    kube, prom, rec = jc.build_cluster(N)
-    rec.reconcile()
-    prom.count = 0
-    kube.verb_counts.clear()
-    assert len(rec.reconcile().processed) == N
-    want = counts(kube, prom)
+
+    def jax_cycle(jax_mode):
+        monkeypatch.setenv("WVA_FLEET_COLLECTION", jax_mode)
+        kube, prom, rec = jc.build_cluster(N)
+        rec.reconcile()
+        prom.count = 0
+        kube.verb_counts.clear()
+        assert len(rec.reconcile().processed) == N
+        return kube, counts(kube, prom)
+
+    kube, sent = jax_cycle(mode)
+    want = dict(sent if mode == "on" else jax_cycle("on")[1])
     # the port writes each status on the cycle's own VA object: the JAX
     # package's re-GET before each of the N status writes is not sent;
-    # with fleet collection on, the timed cycle reads the VAs from the
-    # cache the warm-up's LIST primed, not from a LIST of its own
+    # the timed cycle reads the VAs from the cache the warm-up's LIST
+    # primed, not from a LIST of its own
     want["kube_gets"] -= N
-    if mode == "on":
-        want["kube_lists"] -= 1
-    monkeypatch.delenv("WVA_FLEET_COLLECTION")
+    want["kube_lists"] -= 1
+    monkeypatch.setenv("WVA_FLEET_COLLECTION", mode)
 
     kubes = capture_kubes(monkeypatch, pc)
-    got = pc.timed_cycle(mode, N, **CPU)
+    got = pc.timed_cycle(N, **CPU)
     assert {k: got[k] for k in want} == want
     assert published(kubes[0]) == published(kube)
     assert got["wall_s"] > 0
     k = got["kernel_launches"]
     assert k["cycles"] == 2 and k["sizing_cycles"] >= 1
     assert k["B1"] == k["B2"] == 0          # nothing launches on the CPU
-    assert "WVA_FLEET_COLLECTION" not in os.environ
-    if mode == "on":
-        assert want["prom_queries"] < N and want["kube_lists"] >= 1
-    else:
-        assert want["prom_queries"] > 5 * N
+    assert os.environ["WVA_FLEET_COLLECTION"] == mode
+    assert want["prom_queries"] < N and want["kube_lists"] >= 1
+    if mode == "off":
+        assert sent["prom_queries"] > 5 * N
 
 
 def test_collect_run_reports_where(monkeypatch):
@@ -132,7 +139,8 @@ def test_collect_run_reports_where(monkeypatch):
     assert (out["device"], out["dtype"], out["backend"]) \
         == ("cpu", "float64", "batched")
     assert out["fleet_queries_per_cycle"] == out["fleet"]["prom_queries"]
-    assert out["variants"] == 8 and out["vs_baseline"] > 0
+    assert out["variants"] == 8 and out["value"] == out["fleet"]["wall_s"]
+    assert "sequential" not in out
 
 
 def test_profile_ledger_shape_equal(monkeypatch):
@@ -309,11 +317,12 @@ def test_fuse_budget_is_reported_not_raised():
 
 def test_knobs_restore_the_environment(monkeypatch):
     monkeypatch.setenv("WVA_FUSED_SOLVE", "auto")
-    monkeypatch.delenv("WVA_FLEET_COLLECTION", raising=False)
-    with pc.knobs(WVA_FUSED_SOLVE="off", WVA_FLEET_COLLECTION="off"):
+    monkeypatch.delenv("WVA_PROFILE_SAMPLE_HZ", raising=False)
+    with pc.knobs(WVA_FUSED_SOLVE="off", WVA_PROFILE_SAMPLE_HZ="50"):
         assert os.environ["WVA_FUSED_SOLVE"] == "off"
+        assert os.environ["WVA_PROFILE_SAMPLE_HZ"] == "50"
     assert os.environ["WVA_FUSED_SOLVE"] == "auto"
-    assert "WVA_FLEET_COLLECTION" not in os.environ
+    assert "WVA_PROFILE_SAMPLE_HZ" not in os.environ
 
 
 @pytest.mark.parametrize("script", SCRIPTS)

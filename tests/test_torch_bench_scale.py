@@ -275,5 +275,26 @@ def test_lane_mesh_lists_the_local_devices_in_turn():
         ps.run(True, 1, **CPU)
 
 
+def test_full_size_run_times_the_512_variant_cycle(monkeypatch):
+    """run()'s full-size branch, with the churn, the per-size walls and
+    the greedy stubbed: the 512-variant reconcile cycle it imports from
+    bench_torch_collect runs for real, and its wall is the ratio's
+    denominator."""
+    monkeypatch.setattr(ps, "churn_run", lambda n, mesh, **on: {"n": n})
+    monkeypatch.setattr(ps, "hold_churn", lambda steady: None)
+    walls = {str(n): {"sharded": {"analyze_optimize_ms_p50": 100.0}}
+             for n in ps.SIZES}
+    monkeypatch.setattr(ps, "measure", lambda sizes, mesh, **on: walls)
+    monkeypatch.setattr(ps, "greedy_compare",
+                        lambda n, **on: {"speedup": 4.0})
+    out = ps.run(False, 2, **CPU)
+    assert out["steady_state"] == {"n": ps.CHURN_N}
+    assert out["reconcile_cycle_512_ms"] > 0
+    assert out["vs_512_reconcile_cycle"] == pytest.approx(
+        100.0 / out["reconcile_cycle_512_ms"])
+    assert [b["budget"] for b in out["budgets"]] == [
+        "vs_512_reconcile_cycle", "greedy speedup"]
+
+
 if __name__ == "__main__":
     print(json.dumps(jax_side()))

@@ -95,16 +95,25 @@ def warnings_of(pkg: str, fn, monkeypatch) -> list:
 
 
 def test_pallas_knob_warns_as_reference_and_is_ignored(monkeypatch):
+    """The reference warns about WVA_PALLAS_KERNEL on a host without a
+    TPU and ignores it; the port reads no such knob: with it set it logs
+    nothing and picks what it picks with it unset."""
     monkeypatch.setenv("WVA_PALLAS_KERNEL", "true")
     monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
     said_j = warnings_of(JAX, lambda t: t.engine_backend(), monkeypatch)
-    monkeypatch.setenv("WVA_PALLAS_KERNEL", "true")
-    monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+    assert len(said_j) == 1
     picked = []
-    said_p = warnings_of(
-        PORT, lambda t: picked.append(t.engine_backend("cpu")), monkeypatch)
-    assert said_p == said_j and len(said_p) == 1
-    assert picked == ["batched"]
+    for pallas in ("true", None):
+        monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
+        if pallas is None:
+            monkeypatch.delenv("WVA_PALLAS_KERNEL", raising=False)
+        else:
+            monkeypatch.setenv("WVA_PALLAS_KERNEL", pallas)
+        said_p = warnings_of(
+            PORT, lambda t: picked.append(t.engine_backend("cpu")),
+            monkeypatch)
+        assert said_p == []
+    assert picked == ["batched", "batched"]
 
 
 @pytest.mark.parametrize("knob", ["unset", "true", "false"])

@@ -976,16 +976,15 @@ def held_b1(k):
     assert k["B2"] == 0 and k["d2h_per_sizing_cycle"] == [1]
 
 
-@pytest.mark.parametrize("mode", ["on", "off"])
-def test_bench_collect_on_card_equals_cpu_float64(card, monkeypatch, mode):
+def test_bench_collect_on_card_equals_cpu_float64(card, monkeypatch):
     """bench_torch_collect.timed_cycle at 64 variants in float64: the
     card's counts and published decisions equal the CPU's, and every
     cycle that sized launched B1."""
     bc = bench_script("bench_torch_collect")
     monkeypatch.setenv("WVA_NATIVE_KERNEL", "false")
     kubes = capture_kubes(monkeypatch, bc)
-    ref = bc.timed_cycle(mode, 64, device="cpu", dtype=torch.float64)
-    mine = bc.timed_cycle(mode, 64, device=card, dtype=torch.float64)
+    ref = bc.timed_cycle(64, device="cpu", dtype=torch.float64)
+    mine = bc.timed_cycle(64, device=card, dtype=torch.float64)
     keys = ("prom_queries", "kube_lists", "kube_gets")
     assert {k: mine[k] for k in keys} == {k: ref[k] for k in keys}
     assert published(kubes[1]) == published(kubes[0])

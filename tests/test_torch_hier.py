@@ -13,7 +13,7 @@
   the shards it solved.
 - `stream/checkpoint.py` and `CandidateArena.snapshot_slabs` /
   `restore_slabs`: exact round-trips, clean refusals.
-- `controller/reconciler.py`: `SolveEngineSelector` picks and rebuilds
+- `controller/reconciler.py`: `select_solve_engine` picks and rebuilds
   engines as the reference Reconciler does.
 
 Everything runs on the CPU in float64 with one torch thread; the port
@@ -46,7 +46,7 @@ from workload_variant_autoscaler_tpu.solver import (
 )
 from workload_variant_autoscaler_tpu.solver import sig_digest as jsig_digest
 from workload_variant_autoscaler_tpu_torch.controller import (
-    SolveEngineSelector,
+    select_solve_engine,
 )
 from workload_variant_autoscaler_tpu_torch.obs.trace import Tracer
 from workload_variant_autoscaler_tpu_torch.ops.arena import CandidateArena
@@ -718,48 +718,52 @@ class TestEngineSelection:
         """WVA_HIER_SOLVE=off hands back the flat class itself, not a
         subclass with a high floor; flipping back rebuilds the
         hierarchical engine."""
-        seam = SolveEngineSelector()
-        engine = seam._solve_engine({"WVA_HIER_SOLVE": "off"})
+        engine = select_solve_engine({"WVA_HIER_SOLVE": "off"}, None)
         assert type(engine) is IncrementalSolveEngine
-        assert seam._solve_engine({"WVA_HIER_SOLVE": "off"}) is engine
-        engine2 = seam._solve_engine({"WVA_HIER_SOLVE": "auto"})
+        assert select_solve_engine({"WVA_HIER_SOLVE": "off"},
+                                   engine) is engine
+        engine2 = select_solve_engine({"WVA_HIER_SOLVE": "auto"}, engine)
         assert type(engine2) is HierarchicalSolveEngine
 
     def test_auto_defaults_and_knob_plumbing(self, tmp_path):
-        seam = SolveEngineSelector()
-        e = seam._solve_engine({})
+        e = select_solve_engine({}, None)
         assert type(e) is HierarchicalSolveEngine
         assert e.min_variants == 2048 and e.shard_target == 1024
         assert e.full_every == 32 and e.epsilon == 0.02
         assert e.checkpoint_path is None and e.checkpoint_every == 8
         assert e.checkpoint_max_age_s == 3600.0
-        assert seam._solve_engine({}) is e          # stable across cycles
+        assert select_solve_engine({}, e) is e      # stable across cycles
         path = str(tmp_path / "wva-arena-test.ckpt")
-        e2 = seam._solve_engine({
+        e2 = select_solve_engine({
             "WVA_HIER_SOLVE": "on",
             "WVA_HIER_SHARD_VARIANTS": "256",
             "WVA_ARENA_CHECKPOINT": path,
             "WVA_ARENA_CHECKPOINT_EVERY": "4",
-            "WVA_ARENA_CHECKPOINT_MAX_AGE_S": "120"})
-        assert e2 is not e and seam.engine is e2
+            "WVA_ARENA_CHECKPOINT_MAX_AGE_S": "120"}, e)
+        assert e2 is not e
         assert e2.min_variants == 0 and e2.shard_target == 256
         assert e2.checkpoint_path == path
         assert e2.checkpoint_every == 4
         assert e2.checkpoint_max_age_s == 120.0
 
     def test_environment_first_then_the_configmap(self, monkeypatch):
-        seam = SolveEngineSelector(operator_cm={"WVA_SOLVE_FULL_EVERY": "9"})
-        assert seam._solve_engine().full_every == 9
+        cm = {"WVA_SOLVE_FULL_EVERY": "9"}
+        engine = select_solve_engine(cm, None)
+        assert engine.full_every == 9
         monkeypatch.setenv("WVA_SOLVE_FULL_EVERY", "5")
-        assert seam._solve_engine().full_every == 5
+        engine = select_solve_engine(cm, engine)
+        assert engine.full_every == 5
         monkeypatch.setenv("WVA_INCREMENTAL_SOLVE", "off")
-        assert seam._solve_engine() is None and seam.engine is None
+        assert select_solve_engine(cm, engine) is None
         monkeypatch.delenv("WVA_INCREMENTAL_SOLVE")
-        assert seam._hier_solve_mode({"WVA_HIER_SOLVE": "enabled"}) == "on"
-        assert seam._hier_solve_mode({"WVA_HIER_SOLVE": "junk"}) == "auto"
+        # "enabled" reads as on (the floor forced to 0), junk as auto
+        assert select_solve_engine({"WVA_HIER_SOLVE": "enabled"},
+                                   None).min_variants == 0
+        assert select_solve_engine({"WVA_HIER_SOLVE": "junk"},
+                                   None).min_variants == 2048
         # a malformed or negative value falls back to the default
-        engine = seam._solve_engine({"WVA_SOLVE_EPSILON": "-1",
-                                     "WVA_HIER_MIN_VARIANTS": "nan"})
+        engine = select_solve_engine({"WVA_SOLVE_EPSILON": "-1",
+                                      "WVA_HIER_MIN_VARIANTS": "nan"}, None)
         assert engine.epsilon == 0.02 and engine.min_variants == 2048
 
     def test_small_fleet_delegates_to_flat_path(self):

@@ -10,8 +10,10 @@ one change made through the API between the first and the second pass.
 The port's `InMemoryKube` counts its VA verbs: after the first pass a
 full pass sends no LIST, and one GET for each VA a foreign write, an
 addition or a deletion touched; a watch-drop window, a status write that
-failed, WVA_FLEET_COLLECTION=off and a client with no watch source fall
-back to what the JAX package does. Besides: the own-write filter under
+failed and a client with no watch source fall back to what the JAX
+package does. WVA_FLEET_COLLECTION=off sends the JAX package down its
+per-variant path; the port has one path, reads no such knob and sends
+what it sends by default. Besides: the own-write filter under
 the publish fan-out, the resourceVersion echo test that serves RestKube's
 asynchronous events, RestKube's gap reports, and two full passes through
 RestKube's VA verbs whose second sends only its status writes.
@@ -137,10 +139,10 @@ CASES = {
                                     until_cycle=2),)},
                    spec_write, 2, [(1, 0), (1, 0), (0, 0)], 1),
     "failed-write": ({}, fail_write, 2, [(1, 0), (0, 0), (0, 1)], 2),
-    # legacy: re-GET per VA in _prepare, re-LIST for the condition series
+    # the JAX package's per-variant path; the port's one path
     "fleet-collection-off": (
         {"operator": (("WVA_FLEET_COLLECTION", "off"),)}, None, 2,
-        [(2, N), (2, N), (2, N)], 0),
+        [(1, 0), (0, 0), (0, 0)], 2),
     "no-watch-source": ({}, no_watch_source, 1,
                         [(1, 0), (1, 0), (1, 0)], 0),
 }
@@ -152,6 +154,19 @@ def test_full_pass_reads_the_cache_and_publishes_as_the_reference(
     extra, make_change, at, want, from_cache = CASES[case]
     c = Cluster(**SMALL, **extra)
     counts: list = []
+    if case == "fleet-collection-off":
+        # each records the path it collected on: the records are held
+        # equal without it
+        records = rc.decision_records
+
+        def without_mode(b, cycle):
+            out = records(b, cycle)
+            for d in out.values():
+                mode = d["inputs"].pop("collection_mode")
+                assert mode == ("fleet" if b.pkg == PORT else "legacy")
+            return out
+
+        monkeypatch.setattr(rc, "decision_records", without_mode)
 
     def before(cycle, j, p, _load):
         if cycle == 1:

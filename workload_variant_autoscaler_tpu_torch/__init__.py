@@ -7,7 +7,7 @@ bisection runs as the CUDA kernels of `ops/bisect_kernel.py`. The
 steady-state cycle goes through `IncrementalSolveEngine`, or, for fleets
 of `WVA_HIER_MIN_VARIANTS` variants and more, `HierarchicalSolveEngine`
 (which engine a controller runs is chosen by
-`controller.SolveEngineSelector`); limited mode
+`controller.select_solve_engine`); limited mode
 (`OptimizerSpec(unlimited=False)`) runs the capacity-aware greedy.
 """
 

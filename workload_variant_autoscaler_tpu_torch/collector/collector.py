@@ -15,7 +15,7 @@ import os
 import time
 from dataclasses import dataclass
 
-from ..utils import fix_value, get_logger, kv
+from ..utils import fix_value, get_logger, knob, kv
 from .prometheus import PromAPI, Sample
 
 log = get_logger("wva.collector")
@@ -107,28 +107,29 @@ def _jetstream_overrides(family: MetricFamily,
                          cm: dict[str, str] | None = None) -> MetricFamily:
     """Tunable deviations for real JetStream endpoints (see the
     JETSTREAM_FAMILY comment); the in-repo emulator needs none of them.
-    Env first, then the operator ConfigMap — the standard knob
-    precedence (reference controller.go:516-538)."""
+    Env first, then the operator ConfigMap, where a SET env value wins
+    even when empty: WVA_JETSTREAM_MODEL_LABEL="" drops the label matcher
+    a ConfigMap names (utils.knob would fall through to the ConfigMap)."""
     from dataclasses import replace
 
-    def knob(key: str) -> str | None:
+    def override(key: str) -> str | None:
         v = os.environ.get(key)
         if v is None and cm:
             v = cm.get(key)
         return v
 
     kwargs: dict = {}
-    model_label = knob("WVA_JETSTREAM_MODEL_LABEL")
+    model_label = override("WVA_JETSTREAM_MODEL_LABEL")
     if model_label is not None:
         kwargs["model_label"] = model_label.strip()
-    ns_label = knob("WVA_JETSTREAM_NAMESPACE_LABEL")
+    ns_label = override("WVA_JETSTREAM_NAMESPACE_LABEL")
     if ns_label is not None:
         kwargs["namespace_label"] = ns_label.strip()
-    if (knob("WVA_JETSTREAM_SLOTS_PERCENTAGE") or "").lower() in (
+    if (override("WVA_JETSTREAM_SLOTS_PERCENTAGE") or "").lower() in (
             "1", "true"):
         from ..utils import parse_float_or
 
-        slots = parse_float_or(knob("WVA_JETSTREAM_TOTAL_SLOTS"), 0.0)
+        slots = parse_float_or(override("WVA_JETSTREAM_TOTAL_SLOTS"), 0.0)
         if slots > 0:
             kwargs["running"] = "jetstream_slots_used_percentage"
             kwargs["running_scale"] = slots
@@ -139,16 +140,15 @@ def _jetstream_overrides(family: MetricFamily,
     return replace(family, **kwargs) if kwargs else family
 
 
-def active_family(cm_value: str | None = None,
-                  cm: dict[str, str] | None = None) -> MetricFamily:
+def active_family(cm: dict[str, str] | None = None) -> MetricFamily:
     """The dialect selected by WVA_METRIC_FAMILY — env first, then the
-    operator-ConfigMap value (reference env-over-ConfigMap precedence,
-    controller.go:516-538), default vllm. An unknown name warns and falls
-    back — a typo must not silently turn off autoscaling."""
-    name = (
-        os.environ.get("WVA_METRIC_FAMILY", "").strip()
-        or (cm_value or "").strip()
-    ).lower() or "vllm"
+    operator ConfigMap `cm` (utils.knob, except that an env value of
+    blanks falls through to the ConfigMap, as in the reference), default
+    vllm. An unknown name warns and falls back — a typo must not
+    silently turn off autoscaling."""
+    name = (knob("WVA_METRIC_FAMILY", cm).strip()
+            or (cm or {}).get("WVA_METRIC_FAMILY", "").strip()
+            ).lower() or "vllm"
     family = METRIC_FAMILIES.get(name)
     if family is None:
         log.warning("unknown WVA_METRIC_FAMILY; using vllm",
@@ -555,7 +555,6 @@ def collect_load(
 MODE_FLEET = "fleet"                    # demuxed from the grouped result
 MODE_REPAIR = "per-variant-repair"      # labels missing from the grouped
                                         # result: single-variant queries
-MODE_LEGACY = "legacy"                  # WVA_FLEET_COLLECTION=off path
 MODE_STREAM = "stream"                  # pushed/streamed ingest (stream/):
                                         # zero Prometheus round-trips
 
@@ -647,20 +646,16 @@ def fleet_availability_query(family: MetricFamily | None = None) -> str:
 
 
 class CountingPromAPI:
-    """PromAPI wrapper that counts queries (the
-    inferno_collection_queries_total feed for the legacy/repair paths).
-    `on_query` lets a FleetLoadCollector share one repair counter across
-    every variant's repair client."""
+    """PromAPI wrapper that calls `on_query` before each query: every
+    variant's repair client of a FleetLoadCollector feeds one repair
+    counter (inferno_collection_queries_total{mode="per-variant-repair"})."""
 
-    def __init__(self, inner: PromAPI, on_query=None):
+    def __init__(self, inner: PromAPI, on_query):
         self.inner = inner
-        self.count = 0
         self._on_query = on_query
 
     def query(self, promql: str) -> list:
-        self.count += 1
-        if self._on_query is not None:
-            self._on_query()
+        self._on_query()
         return self.inner.query(promql)
 
 

@@ -20,7 +20,7 @@ from .reconciler import (
     SERVICE_CLASS_CM_NAME,
     Reconciler,
     ReconcileResult,
-    SolveEngineSelector,
+    select_solve_engine,
 )
 
 __all__ = [
@@ -39,8 +39,8 @@ __all__ = [
     "Reconciler",
     "RestKube",
     "SERVICE_CLASS_CM_NAME",
-    "SolveEngineSelector",
     "WatchEvent",
     "crd",
+    "select_solve_engine",
     "translate",
 ]

@@ -13,7 +13,7 @@ kernels of ops/bisect_kernel.py, on `cpu` as the PyTorch trip loop.
 
 `Reconciler(..., device=None, dtype=None)` runs on the card unless the
 caller passes `device="cpu"`; with no device given and no CUDA present it
-raises. The solve engine comes from a `SolveEngineSelector` (the
+raises. The solve engine comes from `select_solve_engine` (the
 WVA_INCREMENTAL_SOLVE / WVA_HIER_SOLVE knobs); the backend and the
 device meshes come from controller/translate.py (WVA_NATIVE_KERNEL,
 WVA_MESH_DEVICES, WVA_SHARDED_FLEET). With WVA_STREAM on (the default)
@@ -35,10 +35,8 @@ from typing import Optional
 from ..actuator import Actuator
 from ..collector import (
     MODE_FLEET,
-    MODE_LEGACY,
     MODE_REPAIR,
     MODE_STREAM,
-    CountingPromAPI,
     FleetLoadCollector,
     IncompleteMetricsError,
     LoadCache,
@@ -94,9 +92,9 @@ from ..solver.hierarchy import (
     DEFAULT_SHARD_TARGET,
 )
 from ..solver.incremental import (
-    DEFAULT_EPSILON,
     DEFAULT_FULL_EVERY,
     quantize_load,
+    solve_epsilon,
 )
 from ..stream.state import FleetSnapshot, StreamState
 from ..utils import (
@@ -109,6 +107,7 @@ from ..utils import (
     fanout_workers,
     full_name,
     get_logger,
+    knob,
     kv,
     parse_float_or,
     resolve_device,
@@ -134,12 +133,14 @@ _OFF = ("off", "false", "0", "disabled")
 _ON = ("on", "true", "1", "enabled")
 
 
-class SolveEngineSelector:
-    """Holds the last operator ConfigMap mapping and the current engine,
-    and hands out the engine the knobs ask for: the reference
-    Reconciler's `_solve_knob`, `_incremental_solve_enabled`,
-    `_hier_solve_mode` and `_solve_engine` (same names). Knobs, each read
-    from the environment first and then from the operator ConfigMap:
+def select_solve_engine(operator_cm: Optional[dict],
+                        engine: Optional[IncrementalSolveEngine],
+                        ) -> Optional[IncrementalSolveEngine]:
+    """The incremental solve engine the knobs ask for, or None when
+    disabled: `engine` itself while its knobs stand, else a new one (so
+    the next cycle runs full, which is what a changed quantization
+    requires). The reference Reconciler's `_solve_engine`. Knobs, each
+    read by utils.knob (the environment, then `operator_cm`):
 
     - `WVA_INCREMENTAL_SOLVE` (default on): `off` means no engine (a
       full solve every cycle).
@@ -147,100 +148,50 @@ class SolveEngineSelector:
       the `WVA_HIER_MIN_VARIANTS` floor below which it delegates to the
       flat path; `on` forces the two-level path at any fleet size; `off`
       is the flat `IncrementalSolveEngine` itself, not a subclass.
-    - `WVA_SOLVE_EPSILON`, `WVA_SOLVE_FULL_EVERY`,
-      `WVA_HIER_SHARD_VARIANTS`, `WVA_HIER_MIN_VARIANTS`,
-      `WVA_ARENA_CHECKPOINT` (a path; empty = no checkpoint),
-      `WVA_ARENA_CHECKPOINT_EVERY`, `WVA_ARENA_CHECKPOINT_MAX_AGE_S`.
+    - `WVA_SOLVE_EPSILON` (solver.incremental.solve_epsilon),
+      `WVA_SOLVE_FULL_EVERY`, `WVA_HIER_SHARD_VARIANTS`,
+      `WVA_HIER_MIN_VARIANTS`, `WVA_ARENA_CHECKPOINT` (a path; empty =
+      no checkpoint), `WVA_ARENA_CHECKPOINT_EVERY`,
+      `WVA_ARENA_CHECKPOINT_MAX_AGE_S`."""
+    def number(key: str, default: float) -> float:
+        return parse_float_or(knob(key, operator_cm), default)
 
-    A change of any knob rebuilds the engine, so the next cycle runs
-    full, which is what a changed quantization requires."""
-
-    def __init__(self, operator_cm: Optional[dict] = None,
-                 engine: Optional[IncrementalSolveEngine] = None):
-        self.operator_cm = dict(operator_cm or {})
-        self.engine = engine
-
-    def _solve_knob(self, key: str, operator_cm=None) -> str:
-        return (os.environ.get(key)
-                or (operator_cm if operator_cm is not None
-                    else self.operator_cm).get(key)
-                or "")
-
-    def _incremental_solve_enabled(self, operator_cm=None) -> bool:
-        """WVA_INCREMENTAL_SOLVE: signature-gated steady-state solving
-        (default on)."""
-        raw = self._solve_knob("WVA_INCREMENTAL_SOLVE", operator_cm)
-        return raw.strip().lower() not in _OFF
-
-    def _hier_solve_mode(self, operator_cm=None) -> str:
-        """WVA_HIER_SOLVE as one of "auto", "on", "off"."""
-        raw = self._solve_knob("WVA_HIER_SOLVE",
-                               operator_cm).strip().lower()
-        if raw in _OFF:
-            return "off"
-        if raw in _ON:
-            return "on"
-        return "auto"
-
-    def _solve_engine(self, operator_cm=None
-                      ) -> Optional[IncrementalSolveEngine]:
-        """The cycle's incremental solve engine, or None when disabled.
-        The current engine is kept while its knobs stand; a changed knob
-        builds a new one."""
-        if not self._incremental_solve_enabled(operator_cm):
-            self.engine = None
-            return None
-        epsilon = parse_float_or(
-            self._solve_knob("WVA_SOLVE_EPSILON", operator_cm),
-            DEFAULT_EPSILON)
-        full_every = int(parse_float_or(
-            self._solve_knob("WVA_SOLVE_FULL_EVERY", operator_cm),
-            DEFAULT_FULL_EVERY))
-        if epsilon < 0:
-            epsilon = DEFAULT_EPSILON
-        engine = self.engine
-        mode = self._hier_solve_mode(operator_cm)
-        if mode == "off":
-            if engine is None \
-                    or type(engine) is not IncrementalSolveEngine \
-                    or engine.epsilon != epsilon \
-                    or engine.full_every != max(full_every, 0):
-                engine = IncrementalSolveEngine(epsilon=epsilon,
-                                                full_every=full_every)
-                self.engine = engine
-            return engine
-        shard_target = max(int(parse_float_or(
-            self._solve_knob("WVA_HIER_SHARD_VARIANTS", operator_cm),
-            DEFAULT_SHARD_TARGET)), 1)
-        min_variants = (0 if mode == "on" else max(int(parse_float_or(
-            self._solve_knob("WVA_HIER_MIN_VARIANTS", operator_cm),
-            DEFAULT_MIN_VARIANTS)), 0))
-        ckpt_path = self._solve_knob("WVA_ARENA_CHECKPOINT",
-                                     operator_cm).strip()
-        ckpt_every = max(int(parse_float_or(
-            self._solve_knob("WVA_ARENA_CHECKPOINT_EVERY", operator_cm),
-            DEFAULT_CHECKPOINT_EVERY)), 1)
-        ckpt_age = parse_float_or(
-            self._solve_knob("WVA_ARENA_CHECKPOINT_MAX_AGE_S",
-                             operator_cm),
-            DEFAULT_CHECKPOINT_MAX_AGE_S)
-        if engine is None \
-                or type(engine) is not HierarchicalSolveEngine \
+    if knob("WVA_INCREMENTAL_SOLVE", operator_cm).strip().lower() in _OFF:
+        return None
+    epsilon = solve_epsilon(operator_cm)
+    full_every = int(number("WVA_SOLVE_FULL_EVERY", DEFAULT_FULL_EVERY))
+    mode = knob("WVA_HIER_SOLVE", operator_cm).strip().lower()
+    if mode in _OFF:
+        if type(engine) is not IncrementalSolveEngine \
                 or engine.epsilon != epsilon \
-                or engine.full_every != max(full_every, 0) \
-                or engine.shard_target != shard_target \
-                or engine.min_variants != min_variants \
-                or (engine.checkpoint_path or "") != ckpt_path \
-                or engine.checkpoint_every != ckpt_every \
-                or engine.checkpoint_max_age_s != ckpt_age:
-            engine = HierarchicalSolveEngine(
-                epsilon=epsilon, full_every=full_every,
-                shard_target=shard_target, min_variants=min_variants,
-                checkpoint_path=ckpt_path or None,
-                checkpoint_every=ckpt_every,
-                checkpoint_max_age_s=ckpt_age)
-            self.engine = engine
+                or engine.full_every != max(full_every, 0):
+            engine = IncrementalSolveEngine(epsilon=epsilon,
+                                            full_every=full_every)
         return engine
+    shard_target = max(int(number("WVA_HIER_SHARD_VARIANTS",
+                                  DEFAULT_SHARD_TARGET)), 1)
+    min_variants = (0 if mode in _ON else max(int(number(
+        "WVA_HIER_MIN_VARIANTS", DEFAULT_MIN_VARIANTS)), 0))
+    ckpt_path = knob("WVA_ARENA_CHECKPOINT", operator_cm).strip()
+    ckpt_every = max(int(number("WVA_ARENA_CHECKPOINT_EVERY",
+                                DEFAULT_CHECKPOINT_EVERY)), 1)
+    ckpt_age = number("WVA_ARENA_CHECKPOINT_MAX_AGE_S",
+                      DEFAULT_CHECKPOINT_MAX_AGE_S)
+    if type(engine) is not HierarchicalSolveEngine \
+            or engine.epsilon != epsilon \
+            or engine.full_every != max(full_every, 0) \
+            or engine.shard_target != shard_target \
+            or engine.min_variants != min_variants \
+            or (engine.checkpoint_path or "") != ckpt_path \
+            or engine.checkpoint_every != ckpt_every \
+            or engine.checkpoint_max_age_s != ckpt_age:
+        engine = HierarchicalSolveEngine(
+            epsilon=epsilon, full_every=full_every,
+            shard_target=shard_target, min_variants=min_variants,
+            checkpoint_path=ckpt_path or None,
+            checkpoint_every=ckpt_every,
+            checkpoint_max_age_s=ckpt_age)
+    return engine
 
 
 @dataclass
@@ -291,7 +242,7 @@ class Reconciler:
         self.va_cache = VACache()
         self.va_cache.attach(kube)
         self.emitter = emitter or MetricsEmitter()
-        self.actuator = Actuator(kube, self.emitter)
+        self.actuator = Actuator(self.emitter)
         self.config_namespace = config_namespace
         self.now = now
         self.sleep = sleep
@@ -369,9 +320,9 @@ class Reconciler:
         self._probe_prom_lock = threading.Lock()
         # incremental solve engine (solver/incremental.py): persists the
         # signature cache / resident arena / warm-start seed across
-        # cycles; (re)built lazily by the selector from the WVA_SOLVE_*
+        # cycles; (re)built lazily by _solve_engine from the WVA_SOLVE_*
         # knobs and dropped when WVA_INCREMENTAL_SOLVE turns off
-        self.engines = SolveEngineSelector()
+        self._solve_engine_obj: Optional[IncrementalSolveEngine] = None
         # live goodput meter (obs/goodput.py — the twin's meter, shared):
         # attached explicitly via attach_goodput_meter() or automatically
         # when WVA_GOODPUT_LIVE is on. None keeps the reconcile path
@@ -480,11 +431,11 @@ class Reconciler:
         self.state.shared_ns_warned = value
 
     @property
-    def _cycle_condition_vas(self) -> Optional[dict]:
+    def _cycle_condition_vas(self) -> dict:
         return self.state.cycle_condition_vas
 
     @_cycle_condition_vas.setter
-    def _cycle_condition_vas(self, value: Optional[dict]) -> None:
+    def _cycle_condition_vas(self, value: dict) -> None:
         self.state.cycle_condition_vas = value
 
     @property
@@ -496,17 +447,6 @@ class Reconciler:
         self.state.last_capacity = value
 
     # -- fleet-scale collection knobs -------------------------------------
-
-    def _fleet_collection_enabled(self, operator_cm=None) -> bool:
-        """WVA_FLEET_COLLECTION: grouped O(metric-families) collection +
-        one-LIST kube snapshots (default on). `off` is the escape hatch
-        back to the per-variant reference shape — env first, then the
-        operator ConfigMap (standard knob precedence)."""
-        raw = (os.environ.get("WVA_FLEET_COLLECTION")
-               or (operator_cm if operator_cm is not None
-                   else self._last_operator_cm).get("WVA_FLEET_COLLECTION")
-               or "")
-        return raw.strip().lower() not in ("off", "false", "0", "disabled")
 
     def _fanout_workers(self) -> int:
         """WVA_COLLECT_FANOUT: worker threads for the residual
@@ -520,12 +460,10 @@ class Reconciler:
         """WVA_STREAM: the event-driven streaming core behind
         run_forever (default on). `off` restores the polled cadence
         loop byte-for-byte — env first, then the operator ConfigMap
-        (standard knob precedence)."""
-        raw = (os.environ.get("WVA_STREAM")
-               or (operator_cm if operator_cm is not None
-                   else self._last_operator_cm).get("WVA_STREAM")
-               or "")
-        return raw.strip().lower() not in ("off", "false", "0", "disabled")
+        (utils.knob)."""
+        return knob("WVA_STREAM", self._last_operator_cm
+                    if operator_cm is None else operator_cm
+                    ).strip().lower() not in _OFF
 
     def ensure_stream_core(self):
         """Attach (once) and return the streaming core. Lazy import:
@@ -537,35 +475,16 @@ class Reconciler:
             self.stream_core = StreamCore(self)
         return self.stream_core
 
-    # -- incremental solve knobs (SolveEngineSelector) ---------------------
-
-    def _knob_cm(self, operator_cm=None) -> dict:
-        return (operator_cm if operator_cm is not None
-                else self._last_operator_cm)
-
-    @property
-    def _solve_engine_obj(self) -> Optional[IncrementalSolveEngine]:
-        return self.engines.engine
-
-    def _solve_knob(self, key: str, operator_cm=None) -> str:
-        return self.engines._solve_knob(key, self._knob_cm(operator_cm))
-
-    def _incremental_solve_enabled(self, operator_cm=None) -> bool:
-        """WVA_INCREMENTAL_SOLVE: signature-gated steady-state solving
-        (default on)."""
-        return self.engines._incremental_solve_enabled(
-            self._knob_cm(operator_cm))
-
-    def _hier_solve_mode(self, operator_cm=None) -> str:
-        """WVA_HIER_SOLVE as one of "auto", "on", "off"."""
-        return self.engines._hier_solve_mode(self._knob_cm(operator_cm))
+    # -- incremental solve engine ----------------------------------------
 
     def _solve_engine(self, operator_cm=None) -> Optional[IncrementalSolveEngine]:
-        """The cycle's incremental solve engine, or None when disabled.
-        A knob change (epsilon / forced-full cadence / hier layout /
-        checkpointing) rebuilds the engine — the next cycle runs full,
-        which is exactly what a changed quantization requires."""
-        return self.engines._solve_engine(self._knob_cm(operator_cm))
+        """The cycle's incremental solve engine, or None when disabled
+        (select_solve_engine over `operator_cm`, by default the last one
+        read). A knob change rebuilds the engine."""
+        self._solve_engine_obj = select_solve_engine(
+            self._last_operator_cm if operator_cm is None else operator_cm,
+            self._solve_engine_obj)
+        return self._solve_engine_obj
 
     # -- hardened dependency calls ----------------------------------------
 
@@ -613,13 +532,12 @@ class Reconciler:
 
     def _cycle_budget_s(self) -> float:
         """WVA_CYCLE_DEADLINE: wall-clock budget all of a cycle's retry
-        ladders share (env first, then the operator ConfigMap — standard
-        knob precedence). Unset/0 = unlimited (the reference's
+        ladders share (env first, then the operator ConfigMap:
+        utils.knob). Unset/0 = unlimited (the reference's
         behavior); set it below GLOBAL_OPT_INTERVAL so a cycle fails
         into a documented degraded state instead of eating its whole
         interval in nested backoffs."""
-        raw = (os.environ.get("WVA_CYCLE_DEADLINE")
-               or self._last_operator_cm.get("WVA_CYCLE_DEADLINE") or "")
+        raw = knob("WVA_CYCLE_DEADLINE", self._last_operator_cm)
         if not raw.strip():
             return math.inf
         try:
@@ -708,8 +626,7 @@ class Reconciler:
         # off by default (0); `make bench-profile` turns it on.
         sampler = None
         sample_hz = parse_float_or(
-            os.environ.get("WVA_PROFILE_SAMPLE_HZ")
-            or self._last_operator_cm.get("WVA_PROFILE_SAMPLE_HZ"), 0.0)
+            knob("WVA_PROFILE_SAMPLE_HZ", self._last_operator_cm), 0.0)
         if sample_hz > 0:
             sampler = ResidualSampler(sample_hz).start()
         if self.state.scope is not None:
@@ -837,31 +754,24 @@ class Reconciler:
                 if sp is not None and sp.trace is root.trace:
                     self.tracer.record(GC_SPAN, sp, t0, t1)
 
-    def _read_fleet(self, operator_cm: dict) -> list:
+    def _read_fleet(self) -> list:
         """A full pass's VariantAutoscalings, as the reference's manager
         cache serves its `List`: from the watch-fed cache when it can
-        serve (va_cache.py), else one LIST that primes it.
-        WVA_FLEET_COLLECTION=off LISTs every pass: its _prepare re-GETs
-        each VA and writes on that copy, which the cache never holds."""
+        serve (va_cache.py), else one LIST that primes it."""
         cache = self.va_cache
-        fleet_mode = self._fleet_collection_enabled(operator_cm)
-        if fleet_mode:
-            try:
-                vas = cache.read(self._refetch_va)
-            except Exception as e:  # noqa: BLE001 — LIST instead
-                log.warning("VariantAutoscaling cache read failed; listing",
-                            extra=kv(error=str(e)))
-                vas = None
-            if vas is not None:
-                self.emitter.emit_va_read("cache")
-                return vas
-        else:
-            cache.invalidate()
+        try:
+            vas = cache.read(self._refetch_va)
+        except Exception as e:  # noqa: BLE001 — LIST instead
+            log.warning("VariantAutoscaling cache read failed; listing",
+                        extra=kv(error=str(e)))
+            vas = None
+        if vas is not None:
+            self.emitter.emit_va_read("cache")
+            return vas
         epoch = cache.begin_list()
         vas = self._kube_call(self.kube.list_variant_autoscalings,
                               what="list:VariantAutoscaling")
-        if fleet_mode:
-            cache.prime(vas, epoch)
+        cache.prime(vas, epoch)
         self.emitter.emit_va_read("list")
         return vas
 
@@ -896,7 +806,7 @@ class Reconciler:
             accelerator_cm = self.read_accelerator_config()
             service_class_cm = self.read_service_class_config()
 
-            vas = self._read_fleet(operator_cm)
+            vas = self._read_fleet()
             # refresh the streaming snapshot: every full pass re-anchors
             # what later scoped micro-cycles solve against (`vas` below
             # are this cycle's working objects; _apply writes the
@@ -915,15 +825,11 @@ class Reconciler:
         if scope is not None:
             active = [va for va in active
                       if full_name(va.name, va.namespace) in scope]
-        # fleet mode: the cycle's LIST copies are the condition-metrics
-        # source of truth (_apply writes the published status onto
-        # them), so the post-publish re-LIST is not paid; legacy keeps
-        # the LIST (None). Scoped cycles always use the in-hand objects
-        # (a per-event LIST would defeat the point).
-        self._cycle_condition_vas = (
-            {full_name(va.name, va.namespace): va for va in active}
-            if (self._fleet_collection_enabled(operator_cm)
-                or scope is not None) else None)
+        # the cycle's own VA objects are the condition-metrics source of
+        # truth (_apply writes the published status onto them), so no
+        # post-publish re-LIST is paid
+        self._cycle_condition_vas = {full_name(va.name, va.namespace): va
+                                     for va in active}
         if scope is None:
             for va in vas:
                 if not va.is_active():
@@ -1029,9 +935,7 @@ class Reconciler:
         prepared = self._prepare(active, accelerator_cm, service_class_cm,
                                  system_spec, result,
                                  demand_headroom=self._demand_headroom(operator_cm),
-                                 family=active_family(
-                                     operator_cm.get("WVA_METRIC_FAMILY"),
-                                     cm=operator_cm),
+                                 family=active_family(operator_cm),
                                  drift_tolerance=self._cm_float(
                                      operator_cm, "WVA_DRIFT_TOLERANCE", 0.5),
                                  operator_cm=operator_cm)
@@ -1076,11 +980,7 @@ class Reconciler:
         solve_engine = (self._solve_engine(operator_cm)
                         if scope is None else None)
         if scope is not None:
-            epsilon = parse_float_or(
-                self._solve_knob("WVA_SOLVE_EPSILON", operator_cm),
-                DEFAULT_EPSILON)
-            if epsilon < 0:
-                epsilon = DEFAULT_EPSILON
+            epsilon = solve_epsilon(operator_cm)
             for server in system.servers.values():
                 server.load = quantize_load(server.load, epsilon)
             if engine_mesh is None:
@@ -1402,18 +1302,12 @@ class Reconciler:
         """CR conditions as inferno_condition_status series (post-write
         truth), kube-state-metrics shape without kube-state-metrics —
         the shipped alerts can key on MetricsAvailable/OptimizationReady/
-        PerfModelAccurate directly. Fleet mode reads the cycle's in-hand
-        VA objects (the LIST copies, carrying the status _apply wrote)
-        instead of paying a third LIST per cycle; legacy mode keeps the
-        post-publish re-LIST. Observability only:
-        a failure here never fails the cycle."""
+        PerfModelAccurate directly. Reads the cycle's in-hand VA objects
+        (carrying the status _apply wrote), not a post-publish LIST.
+        Observability only: a failure here never fails the cycle."""
         try:
-            if self._cycle_condition_vas is not None:
-                vas = list(self._cycle_condition_vas.values())
-            else:
-                vas = self.kube.list_variant_autoscalings()
             samples: dict[tuple[str, str, str], str] = {}
-            for va in vas:
+            for va in self._cycle_condition_vas.values():
                 if not va.is_active():
                     continue
                 for cond in va.status.conditions:
@@ -1792,7 +1686,6 @@ class Reconciler:
             # slice would flap the warned-set state
             self._warn_shared_namespace_aggregation(active, family)
 
-        fleet_mode = self._fleet_collection_enabled(operator_cm)
         # one-LIST kube snapshot: the whole fleet's Deployments in one
         # call, indexed by (namespace, name), instead of a GET per
         # variant. A failed LIST falls back to per-variant GETs — the
@@ -1800,7 +1693,7 @@ class Reconciler:
         # micro-cycles GET just their few Deployments instead of paying
         # a fleet-wide LIST per event.
         deploy_index: Optional[dict[tuple[str, str], Deployment]] = None
-        if fleet_mode and active and not scoped:
+        if active and not scoped:
             try:
                 deploys = self._kube_call(
                     lambda: self.kube.list_deployments(),
@@ -1815,15 +1708,17 @@ class Reconciler:
         # -- pass 1: config screening + object resolution (no Prometheus)
         candidates: list[tuple[crd.VariantAutoscaling, Deployment, str,
                                float, str]] = []
-        for va_listed in active:
-            name = va_listed.name
-            key = full_name(va_listed.name, va_listed.namespace)
-            model = va_listed.spec.model_id
+        # the cycle's own VA objects are its working objects: a status
+        # write re-fetches only on a 409 conflict
+        for va in active:
+            name = va.name
+            key = full_name(va.name, va.namespace)
+            model = va.spec.model_id
             if not model:
                 result.skipped[key] = "missing modelID"
                 continue
 
-            preferred = class_by_key.get(va_listed.spec.slo_class_ref.key, "")
+            preferred = class_by_key.get(va.spec.slo_class_ref.key, "")
             try:
                 target, class_name = translate.find_model_slo_in_spec(
                     system_spec, model, preferred_class=preferred
@@ -1835,14 +1730,14 @@ class Reconciler:
 
             # a malformed profile drops that slice shape only, not the VA
             # (reference controller.go:243-248)
-            for profile in va_listed.spec.model_profile.accelerators:
+            for profile in va.spec.model_profile.accelerators:
                 try:
                     translate.add_profile_to_system_data(system_spec, model, profile)
                 except ValueError as e:
                     log.error("bad accelerator profile, dropping candidate",
                               extra=kv(variant=name, acc=profile.acc, error=str(e)))
 
-            acc_name = va_listed.metadata.labels.get(crd.ACCELERATOR_LABEL, "")
+            acc_name = va.metadata.labels.get(crd.ACCELERATOR_LABEL, "")
             cost_str = accelerator_cm.get(acc_name, {}).get("cost")
             cost = parse_float_or(cost_str, default=float("nan"))
             if cost != cost:
@@ -1852,11 +1747,11 @@ class Reconciler:
                 # the meter needs the variant's pricing + TTFT SLO to
                 # judge its spend; idempotent metadata refresh per cycle
                 self._goodput_meter.register(
-                    va_listed.name, va_listed.namespace, model=model,
+                    va.name, va.namespace, model=model,
                     price_per_hour=cost, slo_ttft_ms=target.slo_ttft)
 
             if deploy_index is not None:
-                deploy = deploy_index.get((va_listed.namespace, name))
+                deploy = deploy_index.get((va.namespace, name))
                 if deploy is None:
                     log.error("failed to get Deployment",
                               extra=kv(variant=name,
@@ -1866,27 +1761,12 @@ class Reconciler:
             else:
                 try:
                     deploy = self._kube_call(
-                        lambda: self.kube.get_deployment(name, va_listed.namespace),
+                        lambda: self.kube.get_deployment(name, va.namespace),
                         what="get:Deployment",
                     )
                 except Exception as e:  # noqa: BLE001
                     log.error("failed to get Deployment", extra=kv(variant=name, error=str(e)))
                     result.skipped[key] = "deployment not found"
-                    continue
-
-            if fleet_mode:
-                # the LIST copy is this cycle's working object — the
-                # per-variant re-GET was pure O(V) apiserver traffic
-                # (conflict-retried status writes already re-fetch on 409)
-                va = va_listed
-            else:
-                try:
-                    va = self._kube_call(
-                        lambda: self.kube.get_variant_autoscaling(name, va_listed.namespace),
-                        what="get:VariantAutoscaling",
-                    )
-                except Exception as e:  # noqa: BLE001
-                    result.skipped[key] = "variant not found"
                     continue
 
             candidates.append((va, deploy, acc_name, cost, class_name))
@@ -1911,32 +1791,24 @@ class Reconciler:
                     result.skipped[key] = "ownerReference patch failed"
                     patch_failed.add(key)
 
-        # -- pass 2: load collection + decision building. Fleet mode
+        # -- pass 2: load collection + decision building. The collector
         # prefetches ~8 grouped queries and demuxes per variant; labels
         # missing from the grouped result (or a failed prefetch) repair
         # through the per-variant queries — the exact pre-existing
         # semantics, proven by running the SAME validate/collect code
         # against the demux view.
         collect_t0 = time.perf_counter()
-        fleet: Optional[FleetLoadCollector] = None
-        legacy_prom: Optional[CountingPromAPI] = None
-        if fleet_mode:
-            fleet = FleetLoadCollector(self.guarded_prom,
-                                       family=family or active_family(),
-                                       probe_window=probe_window)
-        else:
-            legacy_prom = CountingPromAPI(self.guarded_prom)
+        fleet = FleetLoadCollector(self.guarded_prom,
+                                   family=family or active_family(),
+                                   probe_window=probe_window)
         for va, deploy, acc_name, cost, class_name in candidates:
             name = va.name
             key = full_name(va.name, va.namespace)
             model = va.spec.model_id
             if key in patch_failed:
                 continue
-            if fleet is not None:
-                variant_prom, collection_mode = fleet.variant_prom(
-                    model, deploy.namespace)
-            else:
-                variant_prom, collection_mode = legacy_prom, MODE_LEGACY
+            variant_prom, collection_mode = fleet.variant_prom(
+                model, deploy.namespace)
 
             # metrics gate: a live scrape is HEALTHY; any dependency or
             # evidence failure falls through to the last-known-good cache
@@ -2100,13 +1972,10 @@ class Reconciler:
         # collection telemetry: the query counts per path are the series
         # that PROVE O(metric-families) collection (and flag demux rot:
         # a repair count tracking the fleet size)
-        if fleet is not None:
-            queries_by_mode = {MODE_FLEET: fleet.query_count,
-                               MODE_REPAIR: fleet.repair_query_count}
-        else:
-            queries_by_mode = {MODE_LEGACY: legacy_prom.count}
         self.emitter.emit_collection_metrics(
-            queries_by_mode, time.perf_counter() - collect_t0)
+            {MODE_FLEET: fleet.query_count,
+             MODE_REPAIR: fleet.repair_query_count},
+            time.perf_counter() - collect_t0)
         self._publish_drift(drift_samples)
         if not scoped:
             # the per-namespace TPU gauges are observability-only and
@@ -2128,14 +1997,12 @@ class Reconciler:
                                  operator_cm=None) -> None:
         """TPU runtime gauges (duty cycle / HBM) per serving namespace,
         opportunistic and observability-only. WVA_TPU_METRICS=false
-        (env first, then the operator ConfigMap — the standard knob
-        precedence) disables the scrape outright; otherwise namespaces
+        (env first, then the operator ConfigMap: utils.knob) disables
+        the scrape outright; otherwise namespaces
         whose series are absent are backed off to an occasional re-probe
         (they appear within at most TPU_UTIL_RETRY_EVERY cycles of the
         DaemonSet being installed)."""
-        knob = (os.environ.get("WVA_TPU_METRICS")
-                or (operator_cm or {}).get("WVA_TPU_METRICS") or "")
-        if knob.lower() in ("0", "false"):
+        if knob("WVA_TPU_METRICS", operator_cm).lower() in ("0", "false"):
             # clear whatever a previously-enabled scrape exported
             self.emitter.emit_tpu_utilization_metrics({})
             return
@@ -2275,12 +2142,9 @@ class Reconciler:
     def _apply(self, prepared, optimized, result, system) -> None:
         from ..collector import true_arrival_rate_query
 
-        family = active_family(
-            self._last_operator_cm.get("WVA_METRIC_FAMILY"),
-            cm=self._last_operator_cm)
+        family = active_family(self._last_operator_cm)
         probe_targets: dict[str, tuple[str, float]] = {}
         power: dict[tuple[str, str, str], float] = {}
-        fleet_mode = self._cycle_condition_vas is not None
         publishing: list[tuple[crd.VariantAutoscaling, Deployment]] = []
         for va, _deploy in prepared:
             key = full_name(va.name, va.namespace)
@@ -2315,7 +2179,7 @@ class Reconciler:
             """Per-variant status write (signal emission, status PUT) —
             the residual unavoidably-per-variant kube traffic, fanned
             out over WVA_COLLECT_FANOUT workers. The status is written
-            on the cycle's own object (this cycle's LIST copy, or the
+            on the cycle's own object (this cycle's VA, or the
             streaming snapshot's working copy), which carries the
             resourceVersion of the last write; a stale one is refreshed
             by _update_status's conflict retry. Returns the written
@@ -2336,13 +2200,9 @@ class Reconciler:
                 now=self.now(),
             )
 
-            # fleet mode reuses this cycle's Deployment snapshot for the
-            # current-replicas signal instead of a per-variant re-GET;
-            # legacy keeps the live read
             if self.actuator.emit_metrics(
-                    va, prev_desired=prev_desired,
-                    current=(deploy.current_replicas()
-                             if fleet_mode else None)):
+                    va, deploy.current_replicas(),
+                    prev_desired=prev_desired):
                 va.status.actuation.applied = True
 
             self._update_status(va)
@@ -2357,13 +2217,10 @@ class Reconciler:
             if written is None:
                 continue
             key = full_name(written.name, written.namespace)
-            if self._cycle_condition_vas is not None:
-                self._cycle_condition_vas[key] = written
+            self._cycle_condition_vas[key] = written
             # keep the streaming snapshot's working copies at the
             # just-published state, so the next scoped micro-cycle
-            # stabilizes/steps against what is actually on the CR (the
-            # written object is already theirs unless _prepare re-got
-            # it: WVA_FLEET_COLLECTION=off)
+            # stabilizes/steps against what is actually on the CR
             if snap is not None and key in snap.vas:
                 snap.vas[key] = written
         self._publish_power(power)
@@ -2411,16 +2268,14 @@ class Reconciler:
     PROBE_WINDOW_ENV = "WVA_FAST_PROBE_WINDOW"
 
     def _probe_knob(self, key: str, default: float) -> float:
-        raw = os.environ.get(key) or self._last_operator_cm.get(key)
-        return parse_float_or(raw, default)
+        return parse_float_or(knob(key, self._last_operator_cm), default)
 
     def probe_window(self) -> str:
         """Rate window for the probe's demand query. Default 1m (safe at
         any Prometheus scrape interval); drop it to e.g. 15s where the
         scrape interval permits — a 1m window smooths a ramp step so
         much that detection can take most of the window."""
-        return (os.environ.get(self.PROBE_WINDOW_ENV)
-                or self._last_operator_cm.get(self.PROBE_WINDOW_ENV)
+        return (knob(self.PROBE_WINDOW_ENV, self._last_operator_cm)
                 or "1m").strip()
 
     def capacity_envelopes(self) -> dict[str, float]:

@@ -35,7 +35,7 @@ from ..models.chips import CHIP_CATALOG
 from ..models.spec import AllocationSolution, resolve_for_context
 from ..ops.arena import LANE_BUCKET
 from ..ops.fused import BACKENDS as DEVICE_BACKENDS
-from ..utils import full_name, get_logger, kv, parse_float_or
+from ..utils import full_name, get_logger, knob, kv, parse_float_or
 from . import crd
 
 log = get_logger("wva.translate")
@@ -383,8 +383,10 @@ def ttft_percentile(operator_cm: dict[str, str] | None = None) -> float | None:
     this percentile of the TTFT distribution instead of its mean
     (ops.batched.size_batch_tail — realizes the reference's dead
     percentile-sizing intent, allocation.go:117 + defaults.go:12-15).
-    Unset/empty = mean sizing (reference parity); valid range (0.5, 1)."""
-    raw = os.environ.get("WVA_TTFT_PERCENTILE", "").strip() \
+    Unset/empty = mean sizing (reference parity); valid range (0.5, 1).
+    Unlike utils.knob, an env value of blanks falls through to the
+    ConfigMap here, as in the reference."""
+    raw = knob("WVA_TTFT_PERCENTILE", operator_cm).strip() \
         or (operator_cm or {}).get("WVA_TTFT_PERCENTILE", "").strip()
     if not raw:
         return None
@@ -403,17 +405,11 @@ def engine_backend(device) -> str:
     WVA_NATIVE_KERNEL=false -> the device's backend, unconditionally;
     unset (the default)     -> "native" on `cpu` when the library
       builds (on the host it beats the trip loop), else the device's
-      backend; "kernel" on `cuda`.
-    WVA_PALLAS_KERNEL=true is warned about and ignored, as the reference
-    package does on a non-TPU host."""
+      backend; "kernel" on `cuda`."""
     from ..ops import native
 
     dev = torch.device(device)
     own = "kernel" if dev.type == "cuda" else "batched"
-    if os.environ.get("WVA_PALLAS_KERNEL", "").strip().lower() in ("1", "true"):
-        log.warning("WVA_PALLAS_KERNEL set on a non-TPU host; Mosaic "
-                    "kernels need a TPU (interpret mode would be slower "
-                    "than the other backends) — selecting as if unset")
     raw = os.environ.get("WVA_NATIVE_KERNEL", "").strip().lower()
     if raw in ("1", "true"):
         if native.available():

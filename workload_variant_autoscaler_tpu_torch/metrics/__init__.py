@@ -141,8 +141,8 @@ INFERNO_DEPENDENCY_RETRIES_TOTAL = "inferno_dependency_retries_total"
 # fleet-scale collection (collector.FleetLoadCollector): how many
 # Prometheus queries each cycle's load collection issued per path, and
 # the collection phase's wall time — the series that PROVES collection
-# is O(metric-families), not O(variants) (a fleet/legacy ratio near V is
-# the escape hatch engaged; a repair rate near V is grouped demux rot)
+# is O(metric-families), not O(variants) (a repair rate near V is
+# grouped demux rot)
 INFERNO_COLLECTION_QUERIES_TOTAL = "inferno_collection_queries_total"
 INFERNO_COLLECTION_SECONDS = "inferno_collection_seconds"
 # incremental solve (solver/incremental.py): how each variant's sizing
@@ -481,13 +481,13 @@ class MetricsEmitter:
             [LABEL_DEPENDENCY, LABEL_OUTCOME], registry=self.registry,
         )
         # fleet-scale collection telemetry: queries per collection path
-        # (fleet / per-variant-repair / legacy) and the phase's wall time
+        # (fleet / per-variant-repair) and the phase's wall time
         self.collection_queries = Counter(
             INFERNO_COLLECTION_QUERIES_TOTAL.removesuffix("_total"),
             "Prometheus queries issued by per-cycle load collection, by "
             "path (fleet: grouped O(families) queries; "
             "per-variant-repair: variants missing from the grouped "
-            "result; legacy: WVA_FLEET_COLLECTION=off)",
+            "result)",
             [LABEL_MODE], registry=self.registry,
         )
         self.collection_seconds = Histogram(

@@ -81,9 +81,8 @@ class DecisionInputs:
     prev_published: int = 0
     # which collection path produced the load inputs: "fleet" (demuxed
     # from the grouped fleet queries), "per-variant-repair" (labels
-    # missing from the grouped result; single-variant queries), or
-    # "legacy" (WVA_FLEET_COLLECTION=off). "" on records predating the
-    # field.
+    # missing from the grouped result; single-variant queries) or
+    # "stream" (a pushed load). "" on records predating the field.
     collection_mode: str = ""
     # how the sizing was produced (solver/incremental.py): "full" (every
     # lane re-solved — forced-full cycles and WVA_INCREMENTAL_SOLVE=off),

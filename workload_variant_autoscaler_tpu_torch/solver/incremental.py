@@ -43,12 +43,24 @@ from ..models.spec import OptimizerSpec, ServerLoadSpec
 from ..models.system import fused_solve_enabled
 from ..ops.arena import CandidateArena, ShardedFleetArena
 from ..parallel import is_lane_mesh
+from ..utils import knob, parse_float_or
 from .solver import WarmStart
 
 log = logging.getLogger("wva.solver.incremental")
 
 DEFAULT_EPSILON = 0.02
 DEFAULT_FULL_EVERY = 32
+
+
+def solve_epsilon(cm: Optional[dict] = None) -> float:
+    """WVA_SOLVE_EPSILON from the environment, then the operator
+    ConfigMap `cm`: the relative load bucket sizing snaps to. A value
+    that does not parse, or is negative, reads DEFAULT_EPSILON. The
+    engine, the scoped micro-cycle and the streaming core's door all
+    read it here, so a streamed decision equals the next full pass's."""
+    epsilon = parse_float_or(knob("WVA_SOLVE_EPSILON", cm), DEFAULT_EPSILON)
+    return epsilon if epsilon >= 0 else DEFAULT_EPSILON
+
 
 # solve_mode values per variant
 SOLVE_FULL = "full"              # every lane re-solved from scratch

@@ -105,8 +105,8 @@ from ..metrics import (
     SOURCE_SCRAPE,
     SOURCE_WATCH,
 )
-from ..solver.incremental import DEFAULT_EPSILON, quantize, quantize_batch
-from ..utils import get_logger, kv, parse_float_or
+from ..solver.incremental import quantize, quantize_batch, solve_epsilon
+from ..utils import get_logger, knob, kv, parse_float_or
 from ..utils.backoff import CircuitBreaker
 from .checkpoint import CheckpointError, load_checkpoint, save_checkpoint
 from .pushdown import CounterLedger, LedgerQuarantine
@@ -324,18 +324,14 @@ class StreamCore:
     # -- knobs ------------------------------------------------------------
 
     def _knob(self, key: str, default: float) -> float:
-        raw = (os.environ.get(key)
-               or self.rec.state.last_operator_cm.get(key))
-        return parse_float_or(raw, default)
+        return parse_float_or(
+            knob(key, self.rec.state.last_operator_cm), default)
 
     def _knob_str(self, key: str, default: str = "") -> str:
-        raw = (os.environ.get(key)
-               or self.rec.state.last_operator_cm.get(key))
-        return raw if raw else default
+        return knob(key, self.rec.state.last_operator_cm) or default
 
     def _epsilon(self) -> float:
-        eps = self._knob("WVA_SOLVE_EPSILON", DEFAULT_EPSILON)
-        return eps if eps >= 0 else DEFAULT_EPSILON
+        return solve_epsilon(self.rec.state.last_operator_cm)
 
     def _limited_mode(self) -> bool:
         snap = self.state.snapshot

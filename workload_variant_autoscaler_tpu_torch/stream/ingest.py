@@ -312,7 +312,7 @@ class ScrapePoller:
         Best-effort per group: a failing group is metered and skipped
         (the cadence backstop still covers it)."""
         cm = self.core.rec.state.last_operator_cm
-        family = active_family(cm.get("WVA_METRIC_FAMILY"), cm=cm)
+        family = active_family(cm)
         ingested = 0
         for model, ns in self.core.scrape_targets():
             try:

@@ -85,7 +85,7 @@ class StreamState:
         self.cycle_builders: dict = {}
         self.deadline = None                  # utils.Deadline
         self.degradation = None               # DegradationTracker
-        self.cycle_condition_vas: Optional[dict] = None
+        self.cycle_condition_vas: dict = {}
         # -- streaming-core inputs for the CURRENT cycle ----------------
         # scope: None = full fleet (the legacy shape); a frozenset of
         # full_name keys = a scoped micro-cycle over just those variants

@@ -26,6 +26,7 @@ from .concurrency import (
     fanout_workers,
 )
 from .device import DEFAULT_DTYPE, readback, resolve_device, resolve_dtype
+from .knobs import knob
 from .logging import get_logger, kv
 
 
@@ -76,6 +77,7 @@ __all__ = [
     "fix_value",
     "full_name",
     "get_logger",
+    "knob",
     "kv",
     "parse_float_or",
     "readback",

@@ -37,9 +37,10 @@ hold across worker threads.
 from __future__ import annotations
 
 import contextvars
-import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence, TypeVar
+
+from .knobs import knob
 
 T = TypeVar("T")
 
@@ -51,10 +52,9 @@ def fanout_workers(cm: Optional[dict] = None) -> int:
     """The configured fan-out width: WVA_COLLECT_FANOUT env first, then
     the operator ConfigMap (standard knob precedence), default 8;
     values below 1 clamp to 1 (sequential)."""
-    raw = os.environ.get(FANOUT_ENV) or (cm or {}).get(FANOUT_ENV) or ""
     try:
-        workers = int(float(raw))
-    except (TypeError, ValueError):
+        workers = int(float(knob(FANOUT_ENV, cm)))
+    except ValueError:
         return DEFAULT_FANOUT_WORKERS
     return max(workers, 1)
 

@@ -105,9 +105,10 @@ def assert_invariants(rec: dict) -> None:
 
 
 # spans the port opens and the reference package does not: a sizing
-# group's pack and decision (models/system.py), and the interpreter's
+# group's pack and decision (models/system.py), the drift watchdog's
+# batch (controller/reconciler.py _track_drift) and the interpreter's
 # gen-2 pauses (obs/profile.py GC_AUDIT)
-PORT_ONLY = ("system.pack", "system.decide", "gc")
+PORT_ONLY = ("system.pack", "system.decide", "drift.predict", "gc")
 
 
 def tree_shape(node: dict, skip=("gc",)):

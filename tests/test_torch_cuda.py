@@ -1081,3 +1081,67 @@ def test_bench_adversary_smoke_on_card(card, monkeypatch):
                           pa.SMOKE_DURATION_S, device=card)
     assert len(first["result"]["evaluations"]) == first["result"]["budget"]
     held_mean(first["kernel_launches"])
+
+
+def test_drift_batch_on_card_equals_cpu_float64(card):
+    """The drift watchdog's batch (controller/drift.py) at the va512-s8
+    fleet's operating points, at its base loads and rescaled by 0.3 and
+    1.8 as the shift traffic does: every reading on the card within 1e-9
+    relative of the CPU's float64 batch, None where the CPU reads None."""
+    import json
+    import math
+    from dataclasses import asdict
+    from pathlib import Path
+
+    from benchmark.fleet import SHAPES, Fleet
+    from workload_variant_autoscaler_tpu_torch.collector import CollectedLoad
+    from workload_variant_autoscaler_tpu_torch.controller import (
+        crd, drift, translate)
+
+    root = Path(__file__).resolve().parent.parent
+    fleet = Fleet.from_config(json.loads(
+        (root / "benchmark" / "configs" / "va512-s8.json").read_text()))
+    spec = translate.create_system_data(
+        translate.parse_accelerator_configmap(
+            {name: json.dumps({"chip": gen, "chips": str(chips),
+                               "cost": str(cost)})
+             for name, gen, chips, cost, _s in SHAPES[:fleet.profiles]}),
+        {})
+    prof = fleet.profiles_by_model()
+    for model, rows in prof.items():
+        for acc, a, b, g, d, mb in rows:
+            translate.add_profile_to_system_data(
+                spec, model, crd.AcceleratorProfile(
+                    acc=acc, acc_count=1, max_batch_size=mb,
+                    perf_parms=crd.PerfParms(
+                        decode_parms={"alpha": repr(a), "beta": repr(b)},
+                        prefill_parms={"gamma": repr(g),
+                                       "delta": repr(d)})))
+    index = drift.profile_index(spec.profiles)
+    loads = fleet.base_loads()
+    points = []
+    for scale in (0.3, 1.0, 1.8):
+        for i in range(fleet.variants):
+            v = loads[fleet.group_of(i)]
+            mb = next(r[5] for r in prof[fleet.model_of(i)]
+                      if r[0] == fleet.slice_of(i))
+            points.append(drift.operating_point(
+                index, fleet.model_of(i), fleet.slice_of(i), CollectedLoad(
+                    arrival_rate_rpm=v["rps"] * 60.0 * scale,
+                    avg_input_tokens=v["prompt"],
+                    avg_output_tokens=v["gen"],
+                    avg_ttft_ms=v["ttft"] * 1e3, avg_itl_ms=v["itl"] * 1e3),
+                1 + i % 3, server_max_batch=mb))
+    assert all(p is not None for p in points)
+    want = list(drift.predict_latency_batch(points, "cpu"))
+    got = list(drift.predict_latency_batch(points, card))
+    assert sum(w is not None for w in want) > len(points) // 2
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is None:
+            continue
+        for key, x in asdict(w).items():
+            y = getattr(g, key)
+            assert (x is None) == (y is None), key
+            if x is not None:
+                assert math.isclose(y, x, rel_tol=1e-9, abs_tol=0.0), key

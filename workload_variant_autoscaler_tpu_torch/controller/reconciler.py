@@ -114,7 +114,7 @@ from ..utils import (
     resolve_dtype,
     with_backoff,
 )
-from . import crd, translate
+from . import crd, drift, translate
 from .degradation import DegradationState, DegradationTracker, state_for_cache_tier
 from .kube import Deployment, KubeClient
 from .va_cache import VACache
@@ -859,6 +859,7 @@ class Reconciler:
             self._publish_power({})
             self._publish_conditions({})
             self._publish_drift({})
+            self.emitter.emit_drift_lanes(0)
             self.emitter.emit_tpu_utilization_metrics({})
             self._note_capacity({})
             return result
@@ -1798,6 +1799,11 @@ class Reconciler:
         # semantics, proven by running the SAME validate/collect code
         # against the demux view.
         collect_t0 = time.perf_counter()
+        # the drift watchdog's operating points, judged in one batch
+        # after the loop; profiles by (model, slice), first listed wins
+        profiles = drift.profile_index(system_spec.profiles)
+        judged: list[crd.VariantAutoscaling] = []
+        points: list[drift.OperatingPoint] = []
         fleet = FleetLoadCollector(self.guarded_prom,
                                    family=family or active_family(),
                                    probe_window=probe_window)
@@ -1964,9 +1970,20 @@ class Reconciler:
 
             translate.add_server_info_to_system_data(
                 system_spec, va, class_name, demand_headroom=demand_headroom)
-            self._track_drift(va, acc_name, load, deploy.current_replicas(),
-                              system_spec, drift_tolerance, drift_samples,
-                              stale=stale_load)
+            if drift_tolerance <= 0:
+                # the watchdog is off: a stale verdict must not outlive it
+                self._drift_strikes.pop(key, None)
+                crd.remove_condition(va, crd.TYPE_PERF_MODEL_ACCURATE)
+            else:
+                point = drift.operating_point(
+                    profiles, model, acc_name, load,
+                    deploy.current_replicas(),
+                    server_max_batch=translate.profile_max_batch(
+                        va, acc_name),
+                    stale=stale_load)
+                if point is not None:
+                    judged.append(va)
+                    points.append(point)
             prepared.append((va, deploy))
             result.processed.append(key)
         # collection telemetry: the query counts per path are the series
@@ -1976,6 +1993,7 @@ class Reconciler:
             {MODE_FLEET: fleet.query_count,
              MODE_REPAIR: fleet.repair_query_count},
             time.perf_counter() - collect_t0)
+        self._track_drift(judged, points, drift_tolerance, drift_samples)
         self._publish_drift(drift_samples)
         if not scoped:
             # the per-namespace TPU gauges are observability-only and
@@ -2048,38 +2066,40 @@ class Reconciler:
     # noisy 1m-rate sample or a transient must not brand the profile bad
     DRIFT_STRIKES = 3
 
-    def _track_drift(self, va, acc_name, load, current_replicas,
-                     system_spec, tolerance: float,
-                     drift_samples: dict, stale: bool = False) -> None:
+    def _track_drift(self, judged: list, points: list, tolerance: float,
+                     drift_samples: dict) -> None:
         """Compare observed latency averages against the queueing model's
-        prediction at the current operating point; persistent mismatch
-        sets PerfModelAccurate=False on the CR (see controller/drift.py).
-        tolerance <= 0 disables the watchdog — and removes any condition
-        a previously-enabled watchdog left behind, so a stale verdict
-        can't outlive the feature. stale=True (the load came from the
-        last-known-good cache) makes the operating point unjudgeable:
-        cached latencies are evidence about the PAST allocation."""
-        from . import drift as drift_mod
-
-        key = full_name(va.name, va.namespace)
+        prediction at each judged VA's operating point (`points`, in the
+        order of `judged`), all of them in one batched analysis on the
+        cycle's device (the
+        `drift.predict` span); persistent mismatch sets
+        PerfModelAccurate=False on the CR (see controller/drift.py).
+        tolerance <= 0 disables the watchdog (pass 2 has removed the
+        condition); a VA without an operating point (stale load, idle,
+        missing profile, nothing observed) is not judged."""
         if tolerance <= 0:
-            self._drift_strikes.pop(key, None)
-            crd.remove_condition(va, crd.TYPE_PERF_MODEL_ACCURATE)
+            self.emitter.emit_drift_lanes(0)
             return
-        reading = drift_mod.predict_latency(
-            system_spec, va.spec.model_id, acc_name, load, current_replicas,
-            server_max_batch=translate.profile_max_batch(va, acc_name),
-            stale=stale,
-        )
+        with obs_trace.span("drift.predict", lanes=len(points)):
+            readings = drift.predict_latency_batch(points, self.device)
+        self.emitter.emit_drift_lanes(len(points))
+        for va, reading in zip(judged, readings):
+            self._judge_drift(va, reading, tolerance, drift_samples)
+
+    def _judge_drift(self, va, reading, tolerance: float,
+                     drift_samples: dict) -> None:
+        """One VA's verdict on its reading: the ratio samples, the strike
+        count and the PerfModelAccurate condition."""
         if reading is None:
-            # unjudgeable point (idle, saturated, missing profile, nothing
-            # observed): keep the previous condition, decay nothing
+            # past the stable region, or no latency the prediction can
+            # be held to: keep the previous condition, decay nothing
             return
+        key = full_name(va.name, va.namespace)
         for metric, ratio in (("itl", reading.itl_ratio),
                               ("ttft", reading.ttft_ratio)):
             if ratio is not None:
                 drift_samples[(va.name, va.namespace, metric)] = ratio
-        if drift_mod.within_tolerance(reading, tolerance):
+        if drift.within_tolerance(reading, tolerance):
             self._drift_strikes[key] = 0
             crd.set_condition(
                 va, crd.TYPE_PERF_MODEL_ACCURATE, "True",

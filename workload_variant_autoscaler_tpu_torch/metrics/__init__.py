@@ -124,6 +124,9 @@ INFERNO_RECONCILE_STAGE_DURATION_MSEC = "inferno_reconcile_stage_duration_msec"
 INFERNO_VARIANT_POWER_WATTS = "inferno_variant_power_watts"
 INFERNO_FLEET_POWER_WATTS = "inferno_fleet_power_watts"
 INFERNO_MODEL_DRIFT_RATIO = "inferno_model_drift_ratio"
+# the lanes the drift watchdog's last pass sent to its one batched
+# analysis (controller/drift.py predict_latency_batch)
+INFERNO_DRIFT_LANES = "inferno_drift_lanes"
 INFERNO_TPU_DUTY_CYCLE = "inferno_tpu_duty_cycle_percent"
 INFERNO_TPU_HBM_USAGE = "inferno_tpu_hbm_usage_bytes"
 INFERNO_CONDITION_STATUS = "inferno_condition_status"
@@ -560,7 +563,8 @@ class MetricsEmitter:
             INFERNO_HOST_DEVICE_TRANSFERS_TOTAL.removesuffix("_total"),
             "Host<->device array transfers at the pack/readback choke "
             "points (h2d: arrays staged onto device per kernel "
-            "dispatch; d2h: result arrays pulled back)",
+            "dispatch; d2h: result arrays pulled back; d2h-drift: the "
+            "drift watchdog's readings pulled back, one a pass)",
             [LABEL_DIRECTION], registry=self.registry,
         )
         self.gc_pause_seconds = Counter(
@@ -668,6 +672,13 @@ class MetricsEmitter:
             "Observed/predicted latency at the current allocation (1.0 = "
             "the fitted profile matches reality)",
             [LABEL_VARIANT_NAME, LABEL_NAMESPACE, LABEL_METRIC],
+            registry=self.registry,
+        )
+        self.drift_lanes = Gauge(
+            INFERNO_DRIFT_LANES,
+            "VAs the drift watchdog's last pass sent to its batched "
+            "latency prediction (0 with the watchdog off or nothing "
+            "judgeable)",
             registry=self.registry,
         )
         # live goodput (obs/goodput.py GoodputMeter): the twin's
@@ -996,6 +1007,10 @@ class MetricsEmitter:
                     LABEL_NAMESPACE: namespace,
                     LABEL_METRIC: metric,
                 }).set(ratio)
+
+    def emit_drift_lanes(self, lanes: int) -> None:
+        with self._lock:
+            self.drift_lanes.set(lanes)
 
     def emit_degradation_metrics(
         self, per_variant: dict[tuple[str, str], int],

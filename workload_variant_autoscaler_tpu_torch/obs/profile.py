@@ -365,8 +365,9 @@ class DeviceAudit:
 
     def note_transfer(self, direction: str, n: int = 1,
                       shards: int = 1) -> None:
-        """direction: "h2d" (host arrays staged onto device) or "d2h"
-        (device results pulled back to host). Transfers that cross a
+        """direction: "h2d" (host arrays staged onto device), "d2h"
+        (a sizing group's results pulled back to host) or "d2h-drift"
+        (the drift watchdog's readings pulled back). Transfers that cross a
         sharded boundary pass shards > 1 and are also tallied under
         "<direction>@<shards>"."""
         with self._lock:

@@ -82,9 +82,11 @@ def device_name(device) -> str:
     return out.stdout.strip()
 
 
-def readback(t: torch.Tensor, shards: int = 1) -> np.ndarray:
+def readback(t: torch.Tensor, shards: int = 1,
+             direction: str = "d2h") -> np.ndarray:
     """The single device-to-host copy of a packed result (counted as one
-    d2h transfer by the device audit; `shards` > 1 marks the gathered
-    result of a lane mesh)."""
-    DEVICE_AUDIT.note_transfer("d2h", shards=shards)
+    transfer by the device audit under `direction`: "d2h" for a sizing
+    group's result, "d2h-drift" for the drift watchdog's one a pass;
+    `shards` > 1 marks the gathered result of a lane mesh)."""
+    DEVICE_AUDIT.note_transfer(direction, shards=shards)
     return t.detach().cpu().numpy()
